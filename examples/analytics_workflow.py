@@ -21,8 +21,8 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo checkout
 
-import weightedld_tpu as wld
-from weightedld_tpu.runtime.driver import DriverConfig, LdSession
+import weightedld as wld
+from weightedld.runtime.driver import DriverConfig, LdSession
 
 
 def synthetic_cohort(n_seqs=200, n_blocks=40, block=8, rng=None):

@@ -8,8 +8,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo checkout
 
-import weightedld_tpu as wld
-from weightedld_tpu.io.writer import write_pairs
+import weightedld as wld
+from weightedld.io.writer import write_pairs
 
 res = wld.run(sys.argv[1] if len(sys.argv) > 1 else str(Path(__file__).with_name("example.fasta")))
 write_pairs(res.records, sys.stdout)

@@ -2,7 +2,7 @@
 
 The reference ignores the CHROM column entirely, mixing every chromosome
 into one position axis (``WeightedLD.py:361-362``) — cross-chromosome
-"distances" are then meaningless and positions can repeat.  The TPU
+"distances" are then meaningless and positions can repeat.  This
 framework instead enumerates chromosomes (``list_chromosomes`` /
 ``--list-chroms``) and analyses each on its own resident session
 (``read_vcf(chrom=...)`` / ``--chrom``):
@@ -20,8 +20,8 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo checkout
 
-import weightedld_tpu as wld
-from weightedld_tpu.runtime.driver import DriverConfig, LdSession
+import weightedld as wld
+from weightedld.runtime.driver import DriverConfig, LdSession
 
 
 def synthetic_vcf(path, n_samples=40, sites_per_chrom=24, rng=None):

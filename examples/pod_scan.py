@@ -1,9 +1,11 @@
-"""Multi-host pod scan skeleton.
+"""Multi-host scan skeleton.
 
-Run one copy of this per host (the TPU runtime wires the processes
-together).  Every process drives its local chips over the global mesh; the
-striped tile plan is deterministic, inputs are replicated once, and only
-process 0 writes output — communication is O(records).
+Run one copy of this per host, with the ``JAX_COORDINATOR_ADDRESS`` /
+``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID`` environment (or Slurm / MPI)
+wiring the processes together.  Every process drives its local GPUs over
+the global mesh; the striped tile plan is deterministic, inputs are
+replicated once, and only process 0 writes output — communication is
+O(records).
 """
 
 import numpy as np
@@ -13,13 +15,13 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo checkout
 
-import weightedld_tpu as wld
-from weightedld_tpu.parallel.multihost import (
+import weightedld as wld
+from weightedld.parallel.multihost import (
     global_mesh,
     initialize_distributed,
     is_output_process,
 )
-from weightedld_tpu.runtime.driver import DriverConfig, run_to_tsv
+from weightedld.runtime.driver import DriverConfig, run_to_tsv
 
 initialize_distributed()  # no-op for single-process runs
 

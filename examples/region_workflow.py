@@ -20,7 +20,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo checkout
 
-from weightedld_tpu.cli import main as wld_main
+from weightedld.cli import main as wld_main
 
 
 def synthetic_vcf(path, n_samples=30, sites_per_locus=10, rng=None):

@@ -12,8 +12,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))  # repo checkout
 
-import weightedld_tpu as wld
-from weightedld_tpu.runtime.driver import DriverConfig, LdSession
+import weightedld as wld
+from weightedld.runtime.driver import DriverConfig, LdSession
 
 res = wld.prepare(sys.argv[1] if len(sys.argv) > 1 else str(Path(__file__).with_name("example.fasta")))
 

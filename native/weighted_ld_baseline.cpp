@@ -1,9 +1,9 @@
-// weighted_ld_baseline — native CPU comparison baseline for weightedld_tpu.
+// weighted_ld_baseline — native CPU comparison baseline for weightedld.
 //
 // A from-scratch C++17 reimplementation of the reference's fast path
 // (rust/weighted_ld: site-major storage lib.rs:158-197, fused 4-accumulator
 // pair kernel lib.rs:461-486, tiled triangular parallel driver
-// lib.rs:589-679) used to anchor the TPU engine's speedup factor.  Built
+// lib.rs:589-679) used to anchor the device engine's speedup factor.  Built
 // with -O3 -march=native so the inner loop autovectorizes (the analog of
 // the reference's packed_simd feature, lib.rs:410-453); parallelized with
 // OpenMP work-sharing over triangle tiles (the analog of rayon).

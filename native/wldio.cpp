@@ -1,6 +1,6 @@
-// wldio — native ingest (data-loader) for weightedld_tpu.
+// wldio — native ingest (data-loader) for weightedld.
 //
-// TPU-native counterpart of the reference's native readers: the Rust
+// Counterpart of the reference's native readers: the Rust
 // implementation keeps its FASTA reader and site-major store in native code
 // (rust/weighted_ld/src/lib.rs:277-307, :158-275); this library plays that
 // role here.  It parses FASTA alignments and multi-sample VCFs straight from
@@ -8,7 +8,7 @@
 // device pipeline uploads), with OpenMP across sequences/records.
 //
 // Semantics are byte-for-byte identical to the pure-Python parsers in
-// weightedld_tpu/io/{fasta,vcf}.py (which remain as the fallback path and the
+// weightedld/io/{fasta,vcf}.py (which remain as the fallback path and the
 // parity oracle in tests/test_native_io.py), including error messages — the
 // Python wrappers re-raise them as the same exception types.
 //

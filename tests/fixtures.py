@@ -135,7 +135,8 @@ GOLDEN = {
 }
 
 # t7 VCF goldens (SURVEY.md Appendix A.8); the fixture itself lives in the
-# read-only reference checkout.
+# read-only reference checkout, so tests that need its exact goldens skip
+# without it.  Everything else uses the seeded t7-shaped VCF below.
 T7_PATH = "/root/reference/tests/t7_1000genome.vcf"
 T7_GOLDEN = dict(
     shape=(5008, 5),
@@ -169,3 +170,62 @@ def random_alignment(rng, n_seqs, n_sites, p_gap=0.05, p_unknown=0.05):
     take_major = rng.random((n_seqs, n_sites)) < 0.6
     base = np.where(take_major & (base < 4), major[None, :], base)
     return base.astype(np.int8)
+
+
+# ---------------------------------------------------------------------------
+# Seeded t7-shaped VCF: chromosome 19, the five t7 positions and the first
+# two t7 rsIDs, phased genotypes with strong LD.  Haplotype h carries the
+# ALT allele at site k when u_h < SYN7_MAF[k] (nested thresholds of one
+# latent draw, 4% of cells flipped), so every pair is kept with r2 well
+# above 0.013, and site 1 (44890114) has the highest minor-allele
+# frequency — the hub a greedy MAF prune keeps.
+# ---------------------------------------------------------------------------
+
+SYN7_POS = [44890030, 44890114, 44890164, 44890171, 44890183]
+SYN7_IDS = ["rs189636588", "rs73934845", "rs7000003", "rs7000004",
+            "rs7000005"]
+SYN7_MAF = [0.2, 0.45, 0.3, 0.25, 0.35]
+SYN7_SAMPLES = 64
+_SYN7_CACHE: dict = {}
+
+
+def synthetic_t7_text(seed: int = 7) -> str:
+    rng = np.random.default_rng(seed)
+    n_haps = 2 * SYN7_SAMPLES
+    u = rng.random(n_haps)
+    haps = (u[:, None] < np.asarray(SYN7_MAF)[None, :]).astype(int)
+    flip = rng.random(haps.shape) < 0.04
+    haps = np.where(flip, 1 - haps, haps)
+    lines = ["##fileformat=VCFv4.1",
+             "#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+             + "\t".join(f"HG{96 + i:05d}" for i in range(SYN7_SAMPLES))]
+    for k, (pos, rid) in enumerate(zip(SYN7_POS, SYN7_IDS)):
+        gts = "\t".join(f"{haps[2 * i, k]}|{haps[2 * i + 1, k]}"
+                        for i in range(SYN7_SAMPLES))
+        lines.append(f"19\t{pos}\t{rid}\tC\tT\t100\tPASS\t.\tGT\t{gts}")
+    return "\n".join(lines) + "\n"
+
+
+def synthetic_t7_path() -> str:
+    """Path of the seeded t7-shaped VCF, written once per process."""
+    path = _SYN7_CACHE.get("path")
+    if path is None:
+        import tempfile
+        from pathlib import Path
+
+        path = str(Path(tempfile.mkdtemp(prefix="syn7_")) / "syn7.vcf")
+        Path(path).write_text(synthetic_t7_text())
+        _SYN7_CACHE["path"] = path
+    return path
+
+
+def synthetic_t7_reference_pairs():
+    """``{(pos_a, pos_b): (D, D', r2)}`` of the seeded t7-shaped VCF from
+    the float64 reference engine with its Henikoff weights."""
+    from weightedld.core.henikoff import henikoff_weights_host
+    from weightedld.core.reference_impl import reference_ld
+    from weightedld.io.vcf import read_vcf
+
+    aln, sm = read_vcf(synthetic_t7_path())
+    w = henikoff_weights_host(aln)
+    return {(a, b): (d, dp, r2) for a, b, d, dp, r2 in reference_ld(aln, w, sm)}

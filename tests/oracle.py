@@ -1,7 +1,7 @@
 """Test-suite aliases for the package's f64 audit engine
-(weightedld_tpu.core.reference_impl) — the executable reference spec."""
+(weightedld.core.reference_impl) — the executable reference spec."""
 
-from weightedld_tpu.core.reference_impl import (
+from weightedld.core.reference_impl import (
     reference_henikoff as oracle_henikoff,
     reference_ld as oracle_ld,
     reference_pair as oracle_pair,

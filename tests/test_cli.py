@@ -5,7 +5,7 @@ import json
 import numpy as np
 import pytest
 
-from weightedld_tpu.cli import main
+from weightedld.cli import main
 
 from .fixtures import ALL_FASTAS, GOLDEN, write_fasta
 
@@ -175,8 +175,8 @@ def test_gzip_checkpoint_resume_byte_exact(tmp_path):
     uninterrupted checkpointed run, and decompresses to the plain TSV."""
     import gzip
 
-    from weightedld_tpu.runtime import driver as drv
-    from weightedld_tpu.runtime.driver import DriverConfig, run_to_tsv
+    from weightedld.runtime import driver as drv
+    from weightedld.runtime.driver import DriverConfig, run_to_tsv
 
     from .fixtures import random_alignment
 
@@ -413,7 +413,7 @@ def test_r2_hist_validates_before_session(tmp_path, capsys, monkeypatch):
     # Bad edge lists must exit 2 BEFORE the session pays the alignment
     # upload + kernel compile (the validate-before-compile contract that
     # --ld-decay already honors).
-    import weightedld_tpu.cli as cli
+    import weightedld.cli as cli
 
     f = tmp_path / "t1.fasta"
     write_fasta(f, ALL_FASTAS["t1"])
@@ -457,12 +457,12 @@ def test_site_stats(tmp_path, capsys):
     assert rows[2][1:4] == ["1.0", "0", "0.6"]
 
     # Oracle: values equal the host mask math on the same alignment.
-    from weightedld_tpu.io.fasta import read_fasta
-    from weightedld_tpu.pipeline import WldConfig, site_stats
+    from weightedld.io.fasta import read_fasta
+    from weightedld.pipeline import WldConfig, site_stats
 
     stats = site_stats(f, WldConfig())
     aln = read_fasta(f)
-    from weightedld_tpu.core.sites import compute_variable_sites_host
+    from weightedld.core.sites import compute_variable_sites_host
 
     hk, ld = compute_variable_sites_host(aln, 0.8, 0.02)
     np.testing.assert_array_equal(stats["hk"], hk)
@@ -478,9 +478,11 @@ def test_site_stats(tmp_path, capsys):
 def test_site_stats_vcf(tmp_path, capsys):
     # VCF rows keyed by POS; masks are informational (never applied on the
     # VCF path) but still computed from the same thresholds.
-    from .test_vcf import T7_PATH
+    from .fixtures import synthetic_t7_path
 
-    rc, out = _run(capsys, "--file", str(T7_PATH), "--site-stats", "-")
+    vcf = synthetic_t7_path()
+
+    rc, out = _run(capsys, "--file", vcf, "--site-stats", "-")
     assert rc == 0
     lines = out.strip().split("\n")
     assert len(lines) == 6
@@ -532,8 +534,8 @@ def test_progress_bar_rendering():
     non-TTY emits one line per update."""
     import io
 
-    from weightedld_tpu.io.progressbar import ProgressBar
-    from weightedld_tpu.runtime.driver import Progress
+    from weightedld.io.progressbar import ProgressBar
+    from weightedld.runtime.driver import Progress
 
     class Tty(io.StringIO):
         def isatty(self):
@@ -588,12 +590,14 @@ def test_progress_bar_cli_smoke(tmp_path, capsys):
 def _t7_sliced(tmp_path, lo, hi):
     """Write a copy of the t7 fixture holding only records with
     lo <= POS <= hi (plus a trailing newline so no record is quirk-dropped)."""
-    from .fixtures import T7_PATH
+    from .fixtures import synthetic_t7_path
+
+    vcf = synthetic_t7_path()
 
     out = tmp_path / "slice.vcf"
     lines = []
     in_data = False
-    for ln in open(T7_PATH):
+    for ln in open(vcf):
         body = ln.rstrip("\n")
         if not in_data:
             lines.append(body)
@@ -610,10 +614,12 @@ def _t7_sliced(tmp_path, lo, hi):
 
 
 def test_region_equals_presliced_file(tmp_path, capsys):
-    from .fixtures import T7_PATH
+    from .fixtures import synthetic_t7_path
+
+    vcf = synthetic_t7_path()
 
     lo, hi = 44890100, 44890180
-    rc = main(["--file", T7_PATH, "--region", f"19:{lo}-{hi}"])
+    rc = main(["--file", vcf, "--region", f"19:{lo}-{hi}"])
     assert rc == 0
     region_out = capsys.readouterr().out
     sliced = _t7_sliced(tmp_path, lo, hi)
@@ -621,17 +627,19 @@ def test_region_equals_presliced_file(tmp_path, capsys):
     assert capsys.readouterr().out == region_out
     assert len(region_out.strip().splitlines()) == 4  # header + C(3,2) pairs
     # Bare-chromosome region == --chrom.
-    assert main(["--file", T7_PATH, "--region", "19"]) == 0
+    assert main(["--file", vcf, "--region", "19"]) == 0
     bare = capsys.readouterr().out
-    assert main(["--file", T7_PATH, "--chrom", "19"]) == 0
+    assert main(["--file", vcf, "--chrom", "19"]) == 0
     assert capsys.readouterr().out == bare
 
 
 def test_region_cli_validation(tmp_path, capsys):
-    from .fixtures import T7_PATH
+    from .fixtures import synthetic_t7_path
+
+    vcf = synthetic_t7_path()
 
     # Mutually exclusive with --chrom.
-    assert main(["--file", T7_PATH, "--chrom", "19",
+    assert main(["--file", vcf, "--chrom", "19",
                  "--region", "19:1-2"]) == 2
     assert "mutually exclusive" in capsys.readouterr().err
     # VCF-only.
@@ -640,7 +648,7 @@ def test_region_cli_validation(tmp_path, capsys):
     assert main(["--file", str(fa), "--region", "chr1:1-2"]) == 2
     assert "--region only applies to VCF" in capsys.readouterr().err
     # Empty region -> clean error, not a crash.
-    assert main(["--file", T7_PATH, "--region", "19:1-2"]) == 2
+    assert main(["--file", vcf, "--region", "19:1-2"]) == 2
     assert "POS range 1-2" in capsys.readouterr().err
 
 
@@ -669,24 +677,26 @@ def test_keep_exclude_samples_cli(tmp_path, capsys):
 
 
 def test_stream_ingest_region_parity(tmp_path, capsys):
-    from .fixtures import T7_PATH
+    from .fixtures import synthetic_t7_path
+
+    vcf = synthetic_t7_path()
 
     lo, hi = 44890100, 44890200
-    assert main(["--file", T7_PATH, "--region", f"19:{lo}-{hi}",
+    assert main(["--file", vcf, "--region", f"19:{lo}-{hi}",
                  "--engine", "tiled"]) == 0
     row_major = capsys.readouterr().out
-    assert main(["--file", T7_PATH, "--region", f"19:{lo}-{hi}",
+    assert main(["--file", vcf, "--region", f"19:{lo}-{hi}",
                  "--engine", "tiled", "--stream-ingest"]) == 0
     assert capsys.readouterr().out == row_major
     # Sample subsetting composes with streamed VCF ingest (round 5):
     # byte parity against the row-major path under the same subset.
-    from weightedld_tpu.io.vcf import vcf_sample_names
+    from weightedld.io.vcf import vcf_sample_names
 
-    keep = ",".join(vcf_sample_names(T7_PATH)[:32])
-    assert main(["--file", T7_PATH, "--engine", "tiled",
+    keep = ",".join(vcf_sample_names(vcf)[:32])
+    assert main(["--file", vcf, "--engine", "tiled",
                  "--keep-samples", keep]) == 0
     row_major_sub = capsys.readouterr().out
-    assert main(["--file", T7_PATH, "--engine", "tiled",
+    assert main(["--file", vcf, "--engine", "tiled",
                  "--keep-samples", keep, "--stream-ingest"]) == 0
     assert capsys.readouterr().out == row_major_sub
 
@@ -696,23 +706,34 @@ def test_stream_ingest_region_parity(tmp_path, capsys):
 
 
 def test_plink_format_vcf(tmp_path, capsys):
-    from .fixtures import T7_PATH
+    from .fixtures import synthetic_t7_path
 
-    assert main(["--file", T7_PATH, "--out-format", "plink"]) == 0
+    vcf = synthetic_t7_path()
+
+    assert main(["--file", vcf, "--out-format", "plink"]) == 0
     out = capsys.readouterr().out
     lines = out.strip().splitlines()
     assert lines[0] == "CHR_A\tBP_A\tSNP_A\tCHR_B\tBP_B\tSNP_B\tR2\tDP\tD"
-    assert len(lines) == 11  # header + the 10 t7 pairs
+    assert len(lines) == 11  # header + all 10 pairs
     first = lines[1].split("\t")
     # CHROM and the real rsIDs come from the VCF columns.
     assert first[:6] == ["19", "44890030", "rs189636588",
                          "19", "44890114", "rs73934845"]
+    # Every pair matches the float64 reference at 4 dp.
+    from .fixtures import synthetic_t7_reference_pairs
+
+    ref = synthetic_t7_reference_pairs()
+    for ln in lines[1:]:
+        c = ln.split("\t")
+        d, dp, r2 = ref[(int(c[1]), int(c[4]))]
+        assert c[6:] == [repr(round(r2, 4)), repr(round(dp, 4)),
+                         repr(round(d, 4))]
     # Stats are the same numbers as the default format, reordered R2/DP/D.
-    assert main(["--file", T7_PATH]) == 0
+    assert main(["--file", vcf]) == 0
     ref = capsys.readouterr().out.strip().splitlines()[1].split("\t")
     assert first[6:] == [ref[4], ref[3], ref[2]]
     # Tiled streaming emits identical bytes (same tile order as tsv mode).
-    assert main(["--file", T7_PATH, "--out-format", "plink",
+    assert main(["--file", vcf, "--out-format", "plink",
                  "--engine", "tiled"]) == 0
     assert capsys.readouterr().out == out
 
@@ -739,8 +760,8 @@ def test_plink_format_in_checkpoint_fingerprint(tmp_path):
     (every other fingerprint input held identical)."""
     import numpy as np
 
-    from weightedld_tpu.io.writer import PairAnnot
-    from weightedld_tpu.runtime.driver import DriverConfig, run_to_tsv
+    from weightedld.io.writer import PairAnnot
+    from weightedld.runtime.driver import DriverConfig, run_to_tsv
 
     rng = np.random.default_rng(0)
     aln = (rng.integers(0, 2, size=(24, 32)) * 3).astype(np.int8)
@@ -752,7 +773,7 @@ def test_plink_format_in_checkpoint_fingerprint(tmp_path):
     class Stop(Exception):
         pass
 
-    import weightedld_tpu.runtime.driver as drv
+    import weightedld.runtime.driver as drv
 
     orig = drv.LdSession.stream
 
@@ -818,16 +839,18 @@ def test_plink_duplicate_pos_conflict(tmp_path, capsys):
 
 
 def test_plink_mode_validations(tmp_path, capsys):
-    from .fixtures import T7_PATH
+    from .fixtures import synthetic_t7_path
 
-    assert main(["--file", T7_PATH, "--out-format", "plink",
+    vcf = synthetic_t7_path()
+
+    assert main(["--file", vcf, "--out-format", "plink",
                  "--stats-only"]) == 2
     assert "only applies to pair-record" in capsys.readouterr().err
     assert main(["--load-prepared", str(tmp_path / "x.npz"),
                  "--out-format", "plink"]) == 2
     assert "needs --file" in capsys.readouterr().err
     # --top emits pair records: plink applies.
-    assert main(["--file", T7_PATH, "--out-format", "plink", "--top", "2"]) == 0
+    assert main(["--file", vcf, "--out-format", "plink", "--top", "2"]) == 0
     out = capsys.readouterr().out
     assert out.startswith("CHR_A\t") and len(out.strip().splitlines()) == 3
 
@@ -837,14 +860,16 @@ def test_plink_mode_validations(tmp_path, capsys):
 
 
 def test_cross_regions_t7_matches_triangle_rows(capsys):
-    from .fixtures import T7_PATH
+    from .fixtures import synthetic_t7_path
+
+    vcf = synthetic_t7_path()
 
     # A = the first two t7 sites, B = the last three: the cross output must
     # be EXACTLY the 6 corresponding rows of the full-triangle run (A u B
     # covers all 5 sites, so the combined Henikoff weights coincide).
-    assert main(["--file", T7_PATH]) == 0
+    assert main(["--file", vcf]) == 0
     full = capsys.readouterr().out.strip().splitlines()
-    assert main(["--file", T7_PATH, "--cross-regions",
+    assert main(["--file", vcf, "--cross-regions",
                  "19:44890000-44890120", "19:44890150-44890200"]) == 0
     cross = capsys.readouterr().out.strip().splitlines()
     a_pos = {"44890030", "44890114"}
@@ -882,21 +907,23 @@ def test_cross_regions_multichrom_plink(tmp_path, capsys):
 
 
 def test_cross_regions_validations(tmp_path, capsys):
-    from .fixtures import T7_PATH
+    from .fixtures import synthetic_t7_path
+
+    vcf = synthetic_t7_path()
 
     # Overlap refused.
-    assert main(["--file", T7_PATH, "--cross-regions",
+    assert main(["--file", vcf, "--cross-regions",
                  "19:1-100", "19:50-200"]) == 2
     assert "overlap" in capsys.readouterr().err
     # Same chromosome unbounded overlaps itself.
-    assert main(["--file", T7_PATH, "--cross-regions", "19", "19"]) == 2
+    assert main(["--file", vcf, "--cross-regions", "19", "19"]) == 2
     assert "overlap" in capsys.readouterr().err
     # Engine dense refused.
-    assert main(["--file", T7_PATH, "--cross-regions",
+    assert main(["--file", vcf, "--cross-regions",
                  "19:1-2", "19:3-4", "--engine", "dense"]) == 2
     assert "tiled engine" in capsys.readouterr().err
     # Window flags refused.
-    assert main(["--file", T7_PATH, "--cross-regions",
+    assert main(["--file", vcf, "--cross-regions",
                  "19:1-2", "19:3-4", "--max-distance", "5"]) == 2
     assert "exclusive" in capsys.readouterr().err
     # FASTA refused.
@@ -905,19 +932,21 @@ def test_cross_regions_validations(tmp_path, capsys):
     assert main(["--file", str(fa), "--cross-regions", "a:1-2", "b:3-4"]) == 2
     assert "VCF" in capsys.readouterr().err
     # Empty region -> clean error.
-    assert main(["--file", T7_PATH, "--cross-regions",
+    assert main(["--file", vcf, "--cross-regions",
                  "19:1-2", "19:44890150-44890200"]) == 2
     assert "no variant records" in capsys.readouterr().err
     # Cross-chromosome decay refused (POS distance is meaningless there).
-    assert main(["--file", T7_PATH, "--cross-regions", "18", "19",
+    assert main(["--file", vcf, "--cross-regions", "18", "19",
                  "--ld-decay", "0,100,1000"]) == 2
     assert "ONE chromosome" in capsys.readouterr().err
 
 
 def test_cross_regions_stats_and_top(capsys):
-    from .fixtures import T7_PATH
+    from .fixtures import synthetic_t7_path
 
-    args = ["--file", T7_PATH, "--cross-regions",
+    vcf = synthetic_t7_path()
+
+    args = ["--file", vcf, "--cross-regions",
             "19:44890000-44890120", "19:44890150-44890200"]
     assert main(args + ["--stats-only"]) == 0
     import json as _json
@@ -969,28 +998,46 @@ def test_version_flag(capsys):
         main(["--version"])
     assert e.value.code == 0
     out = capsys.readouterr().out
-    import weightedld_tpu
+    import weightedld
 
-    assert weightedld_tpu.__version__ in out
+    assert weightedld.__version__ in out
 
 
 def test_prune_plink_emits_snp_ids(capsys):
-    from .fixtures import T7_PATH
+    from .fixtures import (
+        SYN7_IDS,
+        SYN7_POS,
+        synthetic_t7_path,
+        synthetic_t7_reference_pairs,
+    )
 
-    assert main(["--file", T7_PATH, "--prune-r2", "0.013"]) == 0
-    assert capsys.readouterr().out.strip() == "44890114"
-    assert main(["--file", T7_PATH, "--prune-r2", "0.013",
+    vcf = synthetic_t7_path()
+    # Reference check of the expectation: every pair conflicts at 0.013
+    # and site 1 has the highest minor-allele frequency, so the greedy
+    # MAF sweep keeps exactly that hub.
+    ref = synthetic_t7_reference_pairs()
+    assert len(ref) == 10 and min(v[2] for v in ref.values()) > 0.013
+    from weightedld.io.vcf import read_vcf
+
+    aln, _sm = read_vcf(vcf)
+    maf = np.minimum((aln == 1).mean(axis=0), (aln == 0).mean(axis=0))
+    assert int(np.argmax(maf)) == 1
+    assert main(["--file", vcf, "--prune-r2", "0.013"]) == 0
+    assert capsys.readouterr().out.strip() == str(SYN7_POS[1])
+    assert main(["--file", vcf, "--prune-r2", "0.013",
                  "--out-format", "plink"]) == 0
     out = capsys.readouterr()
-    assert out.out.strip() == "rs73934845"  # plink --extract file format
+    assert out.out.strip() == SYN7_IDS[1]  # plink --extract file format
     assert "ignored" not in out.err  # no spurious auto-engine warning
 
 
 def test_cross_regions_matrix_output(tmp_path, capsys):
-    from .fixtures import T7_PATH
+    from .fixtures import synthetic_t7_path
+
+    vcf = synthetic_t7_path()
 
     dst = tmp_path / "m.npz"
-    assert main(["--file", T7_PATH, "--cross-regions",
+    assert main(["--file", vcf, "--cross-regions",
                  "19:44890000-44890120", "19:44890150-44890200",
                  "--matrix-output", str(dst)]) == 0
     capsys.readouterr()
@@ -1036,26 +1083,30 @@ def test_plink_header_on_empty_result(tmp_path, capsys):
 
 
 def test_cross_regions_rejects_site_stats(capsys):
-    from .fixtures import T7_PATH
+    from .fixtures import synthetic_t7_path
 
-    assert main(["--file", T7_PATH, "--cross-regions", "19:1-2", "19:3-4",
+    vcf = synthetic_t7_path()
+
+    assert main(["--file", vcf, "--cross-regions", "19:1-2", "19:3-4",
                  "--site-stats", "-"]) == 2
     assert "--site-stats" in capsys.readouterr().err
 
 
 def test_site_annotations_multi_one_pass():
-    from .fixtures import T7_PATH
-    from weightedld_tpu.io.vcf import (
+    from .fixtures import synthetic_t7_path
+
+    vcf = synthetic_t7_path()
+    from weightedld.io.vcf import (
         VcfError,
         site_annotations,
         site_annotations_multi,
     )
 
     a, b = site_annotations_multi(
-        T7_PATH, [("19", (44890000, 44890120)), ("19", (44890150, 44890200))])
-    sa = site_annotations(T7_PATH, "19", (44890000, 44890120))
-    sb = site_annotations(T7_PATH, "19", (44890150, 44890200))
+        vcf, [("19", (44890000, 44890120)), ("19", (44890150, 44890200))])
+    sa = site_annotations(vcf, "19", (44890000, 44890120))
+    sb = site_annotations(vcf, "19", (44890150, 44890200))
     assert a[0].tolist() == sa[0].tolist() and a[2] == sa[2]
     assert b[0].tolist() == sb[0].tolist() and b[2] == sb[2]
     with pytest.raises(VcfError, match="no variant records"):
-        site_annotations_multi(T7_PATH, [("19", (1, 2))])
+        site_annotations_multi(vcf, [("19", (1, 2))])

@@ -8,9 +8,9 @@ import jax
 import numpy as np
 import pytest
 
-from weightedld_tpu.core.ld_dense import extract_records, ld_all_pairs_dense
-from weightedld_tpu.parallel.triangle import plan_tiles, stripe
-from weightedld_tpu.runtime.driver import (
+from weightedld.core.ld_dense import extract_records, ld_all_pairs_dense
+from weightedld.parallel.triangle import plan_tiles, stripe
+from weightedld.runtime.driver import (
     DriverConfig,
     LdSession,
     collect_ld_records,
@@ -131,7 +131,7 @@ def test_tsv_checkpoint_resume(rng, tmp_path):
 
     calls = {"n": 0}
     orig = None
-    import weightedld_tpu.runtime.driver as drv
+    import weightedld.runtime.driver as drv
 
     def limited_stream(*args, **kwargs):
         for item in orig(*args, **kwargs):
@@ -173,7 +173,7 @@ def test_checkpoint_refuses_any_single_byte_input_change(rng, tmp_path):
 
     calls = {"n": 0}
     orig = None
-    import weightedld_tpu.runtime.driver as drv
+    import weightedld.runtime.driver as drv
 
     def limited_stream(*args, **kwargs):
         for item in orig(*args, **kwargs):
@@ -216,7 +216,7 @@ def test_windowed_ld(rng):
 def test_matrices_match_dense(rng):
     # Square-matrix assembly equals the dense engine on the strict upper
     # triangle; below/at the diagonal and skipped pairs are NaN + keep=False.
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     aln = random_alignment(rng, 24, 70)
     w = (np.abs(rng.normal(size=24)) + 0.1).astype(np.float32)
@@ -242,8 +242,8 @@ def test_wire_overflow_falls_back_byte_exact(rng):
     equals the wire quantizer by construction)."""
     import io
 
-    from weightedld_tpu.io.writer import write_pairs
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.io.writer import write_pairs
+    from weightedld.runtime.driver import LdSession
 
     aln = random_alignment(rng, 30, 120)
     w = np.ones(30, np.float32)
@@ -267,7 +267,7 @@ def test_wire_overflow_falls_back_byte_exact(rng):
 
 
 def test_batch_caps_invalidated_on_threshold_change(rng):
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     aln = random_alignment(rng, 24, 80)
     sess = LdSession(aln, np.ones(24, np.float32), np.arange(80),
@@ -287,7 +287,7 @@ def test_batch_caps_invalidated_on_threshold_change(rng):
 def test_gzip_member_writer_roundtrip(tmp_path):
     import gzip
 
-    from weightedld_tpu.io.writer import GzipMemberWriter
+    from weightedld.io.writer import GzipMemberWriter
 
     p = tmp_path / "m.gz"
     with GzipMemberWriter(p) as fh:
@@ -305,14 +305,16 @@ def test_gzip_member_writer_roundtrip(tmp_path):
     assert p.read_bytes() == full
 
 
-def test_preplaned_factorized_session_matches(rng):
-    """preplaned='on' (HBM maj/dmin + xq planes) must yield the same
-    records as the per-step-build factorized kernel, through the full
-    session, across EVERY weight-arithmetic branch the preplaned kernel
-    has (they read w_ref rows 1+ with different layouts): the int8x3
-    default, unit weights (no weighted pass), lo_int8, split_bf16, and a
-    bf16-exact weight vector (drops the residual pass entirely)."""
-    from weightedld_tpu.runtime.driver import LdSession
+def test_factorized_session_matches_general_all_weight_modes(rng):
+    """The factorized major/dmin form must yield the same records as the
+    forced general per-pair form, through the full session, across EVERY
+    weight-arithmetic branch (each reads the weight rows differently): the
+    int8x3 default, unit weights (no weighted pass), the lossy int8
+    cascade, split_bf16, and a bf16-exact weight vector (drops the
+    residual pass entirely)."""
+    from dataclasses import replace
+
+    from weightedld.runtime.driver import LdSession
 
     aln = rng.choice([0, 1, 2, 3], size=(20, 70)).astype(np.int8)
     sm = np.arange(70)
@@ -323,25 +325,21 @@ def test_preplaned_factorized_session_matches(rng):
     cases = [
         (w_f32, "none"),            # int8x3 default
         (np.ones(20, np.float32), "none"),
-        (w_f32, "lo_int8"),
+        (w_f32, "int8"),
         (w_f32, "split_bf16"),
         (w_bf16, "none"),           # exact-bf16 branch
     ]
     for w, wq in cases:
-        base_cfg = DriverConfig(tile=16, seq_chunk=8, engine="pallas",
-                                preplaned="off", weight_quant=wq)
-        pre_cfg = DriverConfig(tile=16, seq_chunk=8, engine="pallas",
-                               preplaned="on", weight_quant=wq)
-        s_off = LdSession(aln, w, sm, base_cfg)
-        s_on = LdSession(aln, w, sm, pre_cfg)
-        assert s_off._preplaned is False and s_on._preplaned is True
-        assert s_off._majmin and s_on._majmin
+        cfg = DriverConfig(tile=16, seq_chunk=8, weight_quant=wq)
+        s_mm = LdSession(aln, w, sm, cfg)
+        s_gen = LdSession(aln, w, sm, replace(cfg, kernel="general"))
+        assert s_mm._majmin and not s_gen._majmin
         a = {}
-        for _, r in s_off.stream():
+        for _, r in s_mm.stream():
             a.update({(int(x), int(y)): (float(d), float(r2))
                       for x, y, d, r2 in zip(r.pos_a, r.pos_b, r.d, r.r2)})
         b = {}
-        for _, r in s_on.stream():
+        for _, r in s_gen.stream():
             b.update({(int(x), int(y)): (float(d), float(r2))
                       for x, y, d, r2 in zip(r.pos_a, r.pos_b, r.d, r.r2)})
         assert a == b and len(a) > 0, (wq, w is w_bf16)
@@ -351,8 +349,8 @@ def test_compact_slot_path_matches_sort(rng):
     """The popcount slot compaction (T >= 32) must reproduce the sort
     fallback's records exactly — same sites, values, and (tile, row, col)
     order — across densities, tiles, and the packed wire."""
-    import weightedld_tpu.core.ld_tiled as lt
-    from weightedld_tpu.core.paircore import PairStats
+    import weightedld.core.ld_tiled as lt
+    from weightedld.core.paircore import PairStats
 
     for t, k, dens in ((64, 7, 0.3), (32, 5, 0.9), (64, 3, 0.0),
                        (128, 4, 0.01), (16, 6, 0.5), (16, 9, 0.04)):
@@ -397,7 +395,7 @@ def test_round_fixed_exact_parity():
     byte-for-byte after formatting — adversarial sweep over exact decimal
     half-ties, near-ties at 1e-7/1e-9, tiny negatives (the -0.0 output
     class), and randoms, at every supported scale."""
-    from weightedld_tpu.core.ld_tiled import round_fixed_exact
+    from weightedld.core.ld_tiled import round_fixed_exact
 
     rng = np.random.default_rng(0)
     for d in (0, 1, 2, 3, 4):
@@ -432,8 +430,8 @@ def test_stream_decimals_wire_byte_exact(rng):
     fused), and repeated scans."""
     import io
 
-    from weightedld_tpu.io.writer import write_pairs
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.io.writer import write_pairs
+    from weightedld.runtime.driver import LdSession
 
     aln = random_alignment(rng, 40, 200)
     w = (rng.random(40) * 0.9 + 0.1).astype(np.float32)
@@ -468,7 +466,7 @@ def test_tile_pair_counts_and_shard_balance():
     """bench.py --pod's live load-balance accounting: per-tile true pair
     counts match brute force, and per-shard sums mirror stripe() exactly
     (summing to S(S-1)/2 for all-pairs plans)."""
-    from weightedld_tpu.parallel.triangle import (
+    from weightedld.parallel.triangle import (
         pairs_per_shard,
         plan_tiles,
         stripe,
@@ -506,7 +504,7 @@ def test_matrices_reduced_precision(rng):
     """matrices(dtype=f16|bf16): identical keep/NaN structure, values
     within the dtype's relative precision of the f32 export (the device-
     side downcast halves the API's transport bytes — PERF.md)."""
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     aln = random_alignment(rng, 20, 60)
     w = (np.abs(rng.normal(size=20)) + 0.1).astype(np.float32)
@@ -528,7 +526,7 @@ def test_matrices_reduced_precision(rng):
 
 def test_matrix_output_cli(tmp_path, rng):
     from .fixtures import ALL_FASTAS, write_fasta
-    from weightedld_tpu.cli import main as cli_main
+    from weightedld.cli import main as cli_main
 
     src = tmp_path / "e.fasta"
     write_fasta(src, ALL_FASTAS["example"])
@@ -555,7 +553,7 @@ def test_matrix_output_cli(tmp_path, rng):
 def test_per_scan_threshold_override(rng):
     # A serving session scans at different r2 thresholds without recompiling;
     # each scan must match a session configured with that threshold.
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     aln = random_alignment(rng, 20, 60)
     w = np.ones(20, dtype=np.float32)
@@ -591,8 +589,8 @@ def test_kept_r2_always_finite_and_engines_agree(rng):
     # record set, and summarize moments stay finite.
     import jax.numpy as jnp
 
-    from weightedld_tpu.core.ld_dense import extract_records, ld_all_pairs_dense
-    from weightedld_tpu.runtime.driver import DriverConfig, LdSession
+    from weightedld.core.ld_dense import extract_records, ld_all_pairs_dense
+    from weightedld.runtime.driver import DriverConfig, LdSession
 
     for seed in (1, 7, 23, 42, 77):  # seed 1 is a known ex-NaN instance
         r = np.random.default_rng(seed)
@@ -617,7 +615,7 @@ def test_kept_r2_always_finite_and_engines_agree(rng):
 
 
 def test_top_pairs_matches_full_scan(rng):
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     aln = random_alignment(rng, 30, 96)
     w = (rng.random(30) + 0.05).astype(np.float32)
@@ -655,7 +653,7 @@ def test_bp_window_matches_brute_force(rng):
     # brute-force bp filter of the full record set, exactly — both the
     # plan-level tile pruning and the in-tile mask (VCF-style irregular
     # positions spanning several tiles).
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     n_seqs, n_sites = 30, 96
     aln = random_alignment(rng, n_seqs, n_sites)
@@ -684,7 +682,7 @@ def test_bp_window_matches_brute_force(rng):
 
 
 def test_bp_window_composes_with_index_window(rng):
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     aln = random_alignment(rng, 25, 80)
     w = np.ones(25, dtype=np.float32)
@@ -705,7 +703,7 @@ def test_bp_window_composes_with_index_window(rng):
 
 
 def test_bp_window_rejects_decreasing_site_map(rng):
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     aln = random_alignment(rng, 10, 20)
     sm = np.arange(20)[::-1].copy()
@@ -719,7 +717,7 @@ def test_top_pairs_concentrated_in_one_tile(rng):
     # than k of the strongest pairs (a perfect-LD block), while every other
     # tile has a moderately high max.  The prefilter must still return the
     # exact top-k multiset.
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     n_seqs, n_sites = 40, 96
     aln = random_alignment(rng, n_seqs, n_sites)
@@ -740,7 +738,7 @@ def test_top_pairs_concentrated_in_one_tile(rng):
 
 
 def test_ld_decay_matches_full_scan(rng):
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     aln = random_alignment(rng, 30, 96)
     w = (rng.random(30) + 0.05).astype(np.float32)
@@ -787,7 +785,7 @@ def test_ld_decay_matches_full_scan(rng):
 
 
 def test_prune_matches_greedy_oracle(rng):
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     aln = random_alignment(rng, 40, 80)
     w = np.ones(40, dtype=np.float32)
@@ -830,7 +828,7 @@ def test_prune_matches_greedy_oracle(rng):
 
 def test_prune_windowed(rng):
     # With --max-distance, only in-window conflicts prune.
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     aln = random_alignment(rng, 24, 60)
     w = np.ones(24, dtype=np.float32)
@@ -848,7 +846,7 @@ def test_structured_ld_blocks():
     # Block-correlated alignment: 4 blocks of 6 identical sites -> within-
     # block r2 == 1.0 exactly, across-block r2 = noise.  Every analytics
     # surface must agree on the structure.
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     rng = np.random.default_rng(7)
     n, n_blocks, bs = 60, 4, 6
@@ -890,7 +888,7 @@ def test_structured_ld_blocks():
 
 
 def test_r2_histogram_matches_full_scan(rng):
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     aln = random_alignment(rng, 30, 96)
     w = (rng.random(30) + 0.05).astype(np.float32)
@@ -914,7 +912,7 @@ def test_r2_histogram_matches_full_scan(rng):
 def test_analytics_cross_consistency(rng):
     # Every analytics query is a different projection of the same pair
     # population: their totals must agree exactly.
-    from weightedld_tpu.runtime.driver import LdSession
+    from weightedld.runtime.driver import LdSession
 
     aln = random_alignment(rng, 40, 90)
     w = (rng.random(40) + 0.05).astype(np.float32)
@@ -945,8 +943,8 @@ def test_compact_slot_and_sort_paths_identical(monkeypatch):
     """compact_tile_stats has two static paths (slot-driven vs the
     nonzero-sort fallback for huge capacity buckets); both must emit
     bit-identical records in the same (tile, row, col) order."""
-    from weightedld_tpu.core import ld_tiled
-    from weightedld_tpu.core.paircore import PairStats
+    from weightedld.core import ld_tiled
+    from weightedld.core.paircore import PairStats
 
     rng = np.random.default_rng(3)
     k, t = 5, 8
@@ -979,8 +977,8 @@ def test_speculative_compaction_learns_and_overflows(rng):
     before the count lands; an undersized guess must fall back to an exact
     re-dispatch with identical records, and huge record volumes must turn
     speculation off (its O(capacity*T) cost would exceed the roundtrip)."""
-    from weightedld_tpu.runtime import driver as drv
-    from weightedld_tpu.runtime.driver import DriverConfig, LdSession
+    from weightedld.runtime import driver as drv
+    from weightedld.runtime.driver import DriverConfig, LdSession
 
     aln = rng.choice([0, 0, 0, 1, 1, 4], size=(32, 96)).astype(np.int8)
     w = (rng.random(32) + 0.05).astype(np.float32)
@@ -1026,7 +1024,7 @@ def test_batch_tiles_host_matches_device_plan(rng):
     # coordinates exactly for every batch, across BOTH hybrid phases (the
     # phase-1 buffer has its own k2 batch width).  matrices() relies on
     # this to skip two device fetches per batch.
-    from weightedld_tpu.runtime.driver import LdSession, _fetch
+    from weightedld.runtime.driver import LdSession, _fetch
 
     aln = rng.choice([0, 0, 1, 1, 1], size=(40, 90)).astype(np.int8)
     for s in rng.choice(90, size=20, replace=False):
@@ -1034,7 +1032,7 @@ def test_batch_tiles_host_matches_device_plan(rng):
     w = np.ones(40, np.float32)
     ses = LdSession(
         aln, w, np.arange(90),
-        DriverConfig(tile=16, engine="pallas", seq_chunk=64,
+        DriverConfig(tile=16, seq_chunk=64,
                      tiles_per_shard_batch=2),
     )
     assert ses._hybrid_safe is not None  # two phases engaged
@@ -1052,7 +1050,7 @@ def test_speculative_capacity_shrinks_after_high_yield_scan(rng):
     that scan's oversized per-batch compaction/transfer on later
     low-yield scans (PERF.md round 3: 171 -> 239 ms on a zero-record scan
     before the window)."""
-    from weightedld_tpu.runtime.driver import (
+    from weightedld.runtime.driver import (
         DriverConfig, LdSession, _next_bucket,
     )
 
@@ -1078,32 +1076,73 @@ def test_speculative_capacity_shrinks_after_high_yield_scan(rng):
     assert again == dense
 
 
-def test_resolve_tile_factorized_band():
-    # T=512 applies exactly to pure factorized sessions in the measured
-    # 512 < N <= 2048 band (PERF.md round 3); the general kernel and
-    # out-of-band N keep T=256; non-TPU platforms keep T=128.
-    from weightedld_tpu.runtime.driver import resolve_tile
+def test_resolve_batch_memory_budget():
+    # Tiles per dispatch come from the device's allocatable memory: the
+    # budget share over the per-tile-pair bytes, capped by the shard's plan
+    # and (with no r2 threshold) by the record-compaction buffers; a
+    # device reporting no memory limit gets the fixed host budget.
+    from weightedld.runtime import driver as drv
 
-    for n, want in ((250, 256), (512, 256), (513, 512), (1000, 512),
-                    (2048, 512), (2049, 256), (4000, 256)):
-        got = resolve_tile(None, "pallas", None, platform="tpu",
-                           majmin=True, n_seqs=n)
-        assert got == want, (n, got, want)
-    assert resolve_tile(None, "pallas", None, platform="tpu",
-                        majmin=False, n_seqs=1000) == 256
-    assert resolve_tile(None, "pallas", None, platform="cpu",
-                        majmin=True, n_seqs=1000) == 128
-    # Explicit tile always wins.
-    assert resolve_tile(64, "pallas", None, platform="tpu",
-                        majmin=True, n_seqs=1000) == 64
+    per = drv.tile_pair_bytes(256, 1024, engine="int8", majmin=True,
+                              n_planes=3, n_levels=3)
+    # Operands (2 + 2L + 2) T N, int32 level products, 3-deep stats.
+    assert per == 10 * 256 * 1024 + 3 * 4 * 256 * 256 * 4 \
+        + 3 * 14 * 256 * 256
+    mem = 60 << 30
+    n = 10 ** 6
+    cap = (mem // drv._BATCH_MEM_SHARE) // per
+    k = drv.resolve_batch(n, 256, per, mem, records_uncapped=False)
+    # Within the budget, in as few batches as the budget allows, and
+    # evened out: no batch is more than one tile short of the others.
+    assert k <= cap and -(-n // k) == -(-n // cap)
+    assert -(-n // k) * k - n < -(-n // k)
+    # A bigger device holds proportionally bigger batches.
+    assert drv.resolve_batch(n, 256, per, 2 * mem, False) >= 2 * k - 2
+    # Never more than the shard's plan, never fewer than one tile.
+    assert drv.resolve_batch(5, 256, per, mem, False) == 5
+    assert drv.resolve_batch(5, 256, 10 ** 15, mem, False) == 1
+    # No threshold: bounded by the compaction buffers (~40 B/pair).
+    ku = drv.resolve_batch(n, 256, per, mem, records_uncapped=True)
+    assert ku <= min(cap, (mem // drv._BATCH_MEM_SHARE) // (256 * 256 * 40))
+    # No reported limit (host CPU backends): the fixed host budget.
+    assert drv.resolve_batch(n, 256, per, None, False) <= \
+        max(1, drv._HOST_BATCH_BYTES // per)
+    # A plan one tile over the budget splits into two even batches.
+    assert drv.resolve_batch(cap + 1, 256, per, mem, False) == \
+        -(-(cap + 1) // 2)
+    # The general form costs more per tile pair than the factorized one.
+    assert drv.tile_pair_bytes(256, 1024, engine="int8", majmin=False,
+                               n_planes=5, n_levels=3) > per
+    # The tile rule itself: auto or explicit.
+    assert drv.resolve_tile(None) == drv.TILE_AUTO
+    assert drv.resolve_tile(64) == 64
+
+
+def test_session_sizes_batches_from_device_memory(rng, monkeypatch):
+    # The session reads the mesh device's memory_stats() limit: a larger
+    # reported memory gives larger auto batches (fewer dispatches).
+    from weightedld.runtime import driver as drv
+
+    aln = rng.choice([0, 1], size=(16, 200)).astype(np.int8)
+    w = np.ones(16, np.float32)
+    per = drv.tile_pair_bytes(16, 128, engine="int8", majmin=True,
+                              n_planes=2, n_levels=1)
+    for tiles, want_k in ((3, 3), (1000, 91)):
+        monkeypatch.setattr(drv, "device_memory_bytes",
+                            lambda devs, n=tiles: n * per
+                            * drv._BATCH_MEM_SHARE)
+        ses = drv.LdSession(aln, w, np.arange(200),
+                            DriverConfig(tile=16, r2_threshold=0.5),
+                            mesh=drv.default_mesh(jax.devices()[:1]))
+        assert ses.cfg.tiles_per_shard_batch == want_k  # 91 = whole plan
 
 
 # ---------------------------------------------------------------------------
-# Rectangular (inter-region) mode: DriverConfig.cross_split (round 5).
+# Rectangular (inter-region) mode: DriverConfig.cross_split.
 
 
 def test_plan_tiles_cross_split():
-    from weightedld_tpu.parallel.triangle import plan_tiles
+    from weightedld.parallel.triangle import plan_tiles
 
     plan = plan_tiles(70, tile=16, cross_split=37)
     # Tiles must intersect both blocks: row tile covers sites < 37
@@ -1122,7 +1161,7 @@ def test_plan_tiles_cross_split():
 def _rect_oracle(aln, w, sm, split):
     import jax.numpy as jnp
 
-    from weightedld_tpu.core.ld_dense import extract_records, ld_all_pairs_dense
+    from weightedld.core.ld_dense import extract_records, ld_all_pairs_dense
 
     stats = ld_all_pairs_dense(jnp.asarray(aln), jnp.asarray(w))
     full = extract_records(stats, sm, None)
@@ -1133,12 +1172,12 @@ def _rect_oracle(aln, w, sm, split):
                       np.round(np.asarray(full.r2)[m], 4).tolist()))
 
 
-@pytest.mark.parametrize("engine", ["xla", "pallas"])
+@pytest.mark.parametrize("engine", ["xla", "auto"])
 @pytest.mark.parametrize("seed", [2, 5])
 def test_cross_split_matches_dense_rectangle(engine, seed):
     import jax
 
-    from weightedld_tpu.parallel.sharded import default_mesh
+    from weightedld.parallel.sharded import default_mesh
 
     rng = np.random.default_rng(seed)
     N, S, split = 32, 70, 37
@@ -1148,7 +1187,7 @@ def test_cross_split_matches_dense_rectangle(engine, seed):
     oracle = _rect_oracle(aln, w, sm, split)
     cfg = DriverConfig(engine=engine, tile=16, seq_chunk=128,
                        cross_split=split)
-    mesh = default_mesh(jax.devices()[:4]) if engine == "pallas" else None
+    mesh = default_mesh(jax.devices()[:4]) if engine == "auto" else None
     rec = collect_ld_records(aln, w, sm, cfg, mesh=mesh)
     got = sorted(zip(rec.pos_a.tolist(), rec.pos_b.tolist(),
                      np.round(rec.r2, 4).tolist()))

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from weightedld_tpu.core.encode import encode_alignment
-from weightedld_tpu.io.fasta import read_fasta, read_fasta_with_names
+from weightedld.core.encode import encode_alignment
+from weightedld.io.fasta import read_fasta, read_fasta_with_names
 
 from .fixtures import ALL_FASTAS, EXAMPLE, write_fasta
 
@@ -70,7 +70,7 @@ def test_header_only_fasta_rejected(tmp_path):
     # an [N, 0] alignment (NaN weights downstream).
     import pytest
 
-    from weightedld_tpu.io.fasta import (
+    from weightedld.io.fasta import (
         read_fasta_with_names,
         read_fasta_with_names_python,
     )
@@ -85,7 +85,7 @@ def test_header_only_fasta_rejected(tmp_path):
 def test_gzip_open_does_not_leak_fd(tmp_path):
     import gzip
 
-    from weightedld_tpu.io.fasta import _open_maybe_gzip
+    from weightedld.io.fasta import _open_maybe_gzip
 
     f = tmp_path / "x.fasta.gz"
     with gzip.open(f, "wt") as g:
@@ -107,7 +107,7 @@ def test_rust_reader_unwrapped_adds_newline_column(tmp_path):
     """On unwrapped FASTA the rust reader equals the python reader plus ONE
     trailing Unknown column (the kept '\\n') — monomorphic, masked out
     downstream, so CLI outputs match."""
-    from weightedld_tpu.io.fasta import read_fasta, read_fasta_rust
+    from weightedld.io.fasta import read_fasta, read_fasta_rust
 
     f = tmp_path / "x.fasta"
     f.write_text(">a\nACGT-\n>b\nacgta\n")
@@ -121,7 +121,7 @@ def test_rust_reader_unwrapped_adds_newline_column(tmp_path):
 def test_rust_reader_wrapped_records_are_separate_rows(tmp_path):
     """Wrapped records are NOT concatenated: equal-length wraps become
     separate sequences (so N doubles), unequal wraps abort."""
-    from weightedld_tpu.io.fasta import read_fasta_rust
+    from weightedld.io.fasta import read_fasta_rust
 
     f = tmp_path / "wrapped.fasta"
     f.write_text(">a\nACGT\nTGCA\n>b\nAAAA\nCCCC\n")
@@ -135,7 +135,7 @@ def test_rust_reader_wrapped_records_are_separate_rows(tmp_path):
 
 
 def test_rust_reader_missing_trailing_newline_is_ragged(tmp_path):
-    from weightedld_tpu.io.fasta import read_fasta_rust
+    from weightedld.io.fasta import read_fasta_rust
 
     f = tmp_path / "x.fasta"
     f.write_text(">a\nACGT\n>b\nTGCA")  # last line: no '\n' -> 4 vs 5 syms
@@ -147,7 +147,7 @@ def test_compat_rust_selects_rust_reader(tmp_path, capsys):
     """--compat rust flips the FASTA reader; on a WRAPPED file the run must
     abort like the binary would (exit 2), while --fasta-reader python on
     the same file succeeds."""
-    from weightedld_tpu.cli import main
+    from weightedld.cli import main
 
     f = tmp_path / "wrapped.fasta"
     f.write_text(">a\nACGTACGT\nAC\n>b\nTTTTACGT\nGT\n"

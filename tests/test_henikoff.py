@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from weightedld_tpu.core.encode import encode_alignment
-from weightedld_tpu.core.henikoff import henikoff_weights
-from weightedld_tpu.core.sites import compute_variable_sites
+from weightedld.core.encode import encode_alignment
+from weightedld.core.henikoff import henikoff_weights
+from weightedld.core.sites import compute_variable_sites
 
 from .fixtures import ALL_FASTAS, GOLDEN, random_alignment
 from .oracle import oracle_henikoff
@@ -60,7 +60,7 @@ def test_paper_variant_divergence_demo():
     # SURVEY.md A.9: on the full example.fasta the Python and Rust formulas
     # genuinely diverge — the ambiguous-base sequence flips from lowest to
     # highest weight.  Our paper-variant reproduces the Rust column.
-    from weightedld_tpu.core.henikoff import henikoff_weights_paper
+    from weightedld.core.henikoff import henikoff_weights_paper
 
     aln = _encode(ALL_FASTAS["example"])
     py = np.asarray(henikoff_weights(jnp.asarray(aln)))
@@ -74,7 +74,7 @@ def test_paper_variant_divergence_demo():
 
 
 def test_chunked_large_path_matches():
-    from weightedld_tpu.core.henikoff import (
+    from weightedld.core.henikoff import (
         henikoff_weights_large,
         henikoff_weights_paper,
     )
@@ -107,11 +107,11 @@ def test_henikoff_site_major_matches_padded():
     import jax.numpy as jnp
     import numpy as np
 
-    from weightedld_tpu.core.henikoff import (
+    from weightedld.core.henikoff import (
         henikoff_weights,
         henikoff_weights_site_major,
     )
-    from weightedld_tpu.ops.pallas_ld import pad_alignment_site_major
+    from weightedld.core.majmin import pad_alignment_site_major
 
     rng = np.random.default_rng(11)
     aln = rng.integers(0, 6, size=(37, 53)).astype(np.int8)
@@ -128,8 +128,8 @@ def test_session_weights_none_matches_explicit():
     import jax.numpy as jnp
     import numpy as np
 
-    from weightedld_tpu.core.henikoff import henikoff_weights
-    from weightedld_tpu.runtime.driver import (
+    from weightedld.core.henikoff import henikoff_weights
+    from weightedld.runtime.driver import (
         DriverConfig,
         collect_ld_records,
         LdSession,
@@ -140,7 +140,7 @@ def test_session_weights_none_matches_explicit():
     sm = np.arange(40)
     w = np.asarray(henikoff_weights(jnp.asarray(aln)))
 
-    for engine in ("xla", "pallas"):
+    for engine in ("xla", "auto"):
         cfg = DriverConfig(tile=16, engine=engine)
         sess = LdSession(aln, None, sm, cfg)
         # Same values up to f32 reduction order (the site-major variant
@@ -164,7 +164,7 @@ def test_zero_concrete_site_does_not_nan_weights():
     import jax.numpy as jnp
     import numpy as np
 
-    from weightedld_tpu.core.henikoff import (
+    from weightedld.core.henikoff import (
         henikoff_weights,
         henikoff_weights_large,
     )

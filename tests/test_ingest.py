@@ -8,25 +8,25 @@ import gzip
 import numpy as np
 import pytest
 
-from weightedld_tpu.core.encode import UNKNOWN
-from weightedld_tpu.core.henikoff import (
+from weightedld.core.encode import UNKNOWN
+from weightedld.core.henikoff import (
     henikoff_weights_host,
     henikoff_weights_host_site_major,
 )
-from weightedld_tpu.core.sites import (
+from weightedld.core.sites import (
     site_histogram_host,
     site_histogram_host_site_major,
 )
-from weightedld_tpu.io.vcf import (
+from weightedld.io.vcf import (
     read_vcf,
     read_vcf_python,
     read_vcf_site_major,
     scan_vcf,
 )
-from weightedld_tpu.runtime.driver import DriverConfig, LdSession, SiteMajorCodes
-from weightedld_tpu.runtime.ingest import prepare_vcf_streamed, session_from_vcf
+from weightedld.runtime.driver import DriverConfig, LdSession, SiteMajorCodes
+from weightedld.runtime.ingest import prepare_vcf_streamed, session_from_vcf
 
-from .fixtures import T7_GOLDEN, T7_PATH
+from .fixtures import ALL_FASTAS, synthetic_t7_path, write_fasta
 
 SAMPLES = 12
 
@@ -88,7 +88,7 @@ def test_site_major_matches_row_list_random(tmp_path):
 
 
 def test_site_major_t7_fixture():
-    _assert_streamed_matches(T7_PATH)
+    _assert_streamed_matches(synthetic_t7_path())
 
 
 def test_trailing_line_quirk_matches(tmp_path):
@@ -178,15 +178,16 @@ def _records_map(rec):
 
 def test_session_from_vcf_matches_standard_path():
     """End-to-end: the streamed session's records equal the standard
-    (row-list ingest + f64 weights) tiled session's on the t7 fixture."""
-    import weightedld_tpu as wld
+    (row-list ingest + f64 weights) tiled session's on the t7-shaped VCF."""
+    import weightedld as wld
 
-    cfg = DriverConfig(tile=8, seq_chunk=8, engine="pallas")
-    res = wld.prepare(T7_PATH)
+    vcf = synthetic_t7_path()
+    cfg = DriverConfig(tile=8, seq_chunk=8)
+    res = wld.prepare(vcf)
     ses_std = LdSession(res.alignment, res.weights, res.site_map, cfg)
     std = [r for _, r in ses_std.stream()]
 
-    ses_stream = session_from_vcf(T7_PATH, cfg=cfg)
+    ses_stream = session_from_vcf(vcf, cfg=cfg)
     got = [r for _, r in ses_stream.stream()]
 
     m_std = {}
@@ -203,63 +204,78 @@ def test_session_from_vcf_matches_standard_path():
                                rtol=1e-6)
 
 
+def test_site_major_session_runs_the_matrix_engine():
+    """A SiteMajorCodes (streamed-ingest) session compiles exactly the
+    engine a matrix session does on the same input: same engine, same
+    factorized form, same planes and weight mode — the same cached runner."""
+    import weightedld as wld
+
+    vcf = synthetic_t7_path()
+    cfg = DriverConfig(tile=8, seq_chunk=8)
+    res = wld.prepare(vcf)
+    ses_std = LdSession(res.alignment, res.weights, res.site_map, cfg)
+    ses_stream = session_from_vcf(vcf, cfg=cfg)
+    assert ses_stream.engine == ses_std.engine == "int8"
+    assert ses_stream._majmin and ses_std._majmin
+    assert ses_stream.runner is ses_std.runner
+    assert ses_stream.cfg == ses_std.cfg
+
+
 def test_prepare_vcf_streamed_padding_contract():
     sm, site_map = prepare_vcf_streamed(
-        T7_PATH, cfg=DriverConfig(tile=8, seq_chunk=8, engine="pallas")
+        synthetic_t7_path(), cfg=DriverConfig(tile=8, seq_chunk=8)
     )
     want = LdSession.required_padding(
         sm.n_seqs, sm.n_sites,
-        DriverConfig(tile=8, seq_chunk=8, engine="pallas"),
+        DriverConfig(tile=8, seq_chunk=8),
     )
     assert tuple(sm.codes.shape) == want
     # A mismatched session config must be rejected loudly.
     with pytest.raises(ValueError, match="resolved padding"):
         LdSession(sm, None, site_map,
-                  DriverConfig(tile=16, seq_chunk=8, engine="pallas"))
+                  DriverConfig(tile=16, seq_chunk=8))
 
 
-def test_band_sized_buffer_accepted_when_tile_resolves_smaller(tmp_path):
-    """A SiteMajorCodes buffer pre-sized for a LARGER tile than the session
-    resolves (the ALT5/majmin-False ingest scenario: required_padding(...,
-    majmin=True) sizes for the T=512 factorized band, then an UNKNOWN cell
-    makes majmin resolve False and the session falls back to the default
-    tile) must be adopted by slicing the all-UNKNOWN band padding off —
-    not crash session construction (round-3 advisor finding)."""
+def test_site_major_buffer_must_match_resolved_padding(tmp_path):
+    """A SiteMajorCodes buffer sized exactly by required_padding feeds the
+    session; one padded for another tile (larger or smaller) is refused
+    loudly instead of sweeping dead rows or desyncing the weights."""
     rng = np.random.default_rng(16)
-    # 17 records: cdiv(17, 8)*8 = 24 != cdiv(17, 16)*16 = 32 — the exact
-    # shape-mismatch class of the crash.
+    # 17 records: cdiv(17, 8)*8 = 24 != cdiv(17, 16)*16 = 32.
     path = _mk_vcf(tmp_path, _random_rows(rng, 17))
-    cfg = DriverConfig(tile=8, seq_chunk=8, engine="pallas")
-    # Exactly-sized reference run.
+    cfg = DriverConfig(tile=8, seq_chunk=8)
     sm_exact, site_map = prepare_vcf_streamed(path, cfg=cfg)
     ses_exact = LdSession(sm_exact, None, site_map, cfg)
+    assert ses_exact.cfg.tile == 8
     exact = {}
     for _, r in ses_exact.stream():
         exact.update(_records_map(r))
-    # Band-sized buffer: padded for tile 16 while the session resolves 8.
+    assert len(exact) > 0
     codes, sm2, n_haps = read_vcf_site_major(path, s_pad=32, n_pad=24)
-    smc = SiteMajorCodes(codes=codes, n_seqs=n_haps, n_sites=len(sm2))
-    ses = LdSession(smc, None, sm2, cfg)
-    assert ses.cfg.tile == 8
+    for rows in (32, 16):
+        with pytest.raises(ValueError, match="resolved padding"):
+            LdSession(SiteMajorCodes(codes=codes[:rows], n_seqs=n_haps,
+                                     n_sites=len(sm2)), None, sm2, cfg)
+    # The exactly-sized buffer from the same reader gives the same records.
+    ses = LdSession(SiteMajorCodes(codes=np.ascontiguousarray(codes[:24]),
+                                   n_seqs=n_haps, n_sites=len(sm2)),
+                    None, sm2, cfg)
     got = {}
     for _, r in ses.stream():
         got.update(_records_map(r))
-    assert got == exact and len(exact) > 0
-    # A buffer SMALLER than required is still rejected loudly.
-    with pytest.raises(ValueError, match="resolved padding"):
-        LdSession(SiteMajorCodes(codes=codes[:16], n_seqs=n_haps,
-                                 n_sites=len(sm2)), None, sm2, cfg)
+    assert got == exact
 
 
 def test_session_site_major_unweighted_prune_and_maf():
     """The SiteMajorCodes session must support the analyses that used to
     need the host [N, S] matrix (prune -> MAF from the site-major
     histogram)."""
-    cfg = DriverConfig(tile=8, seq_chunk=8, engine="pallas")
-    ses = session_from_vcf(T7_PATH, cfg=cfg, unweighted=True)
+    vcf = synthetic_t7_path()
+    cfg = DriverConfig(tile=8, seq_chunk=8)
+    ses = session_from_vcf(vcf, cfg=cfg, unweighted=True)
     assert (ses.weights == 1.0).all()
     kept = ses.prune(0.013)
-    res = __import__("weightedld_tpu").prepare(T7_PATH)
+    res = __import__("weightedld").prepare(vcf)
     ses_std = LdSession(res.alignment, np.ones(res.alignment.shape[0],
                                                np.float32),
                         res.site_map, cfg)
@@ -267,25 +283,32 @@ def test_session_site_major_unweighted_prune_and_maf():
 
 
 def test_cli_stream_ingest_golden(capsys):
-    from weightedld_tpu.cli import main
+    # Streamed ingest through the CLI prints the float64 reference's 4-dp
+    # rows, in tile order (one tile here, row-major).
+    from weightedld.cli import main
 
-    rc = main(["--file", T7_PATH, "--stream-ingest", "--tile", "8",
-               "--seq-chunk", "8"])
+    from .fixtures import synthetic_t7_reference_pairs
+
+    rc = main(["--file", synthetic_t7_path(), "--stream-ingest", "--tile",
+               "8", "--seq-chunk", "8"])
     out = capsys.readouterr().out
     assert rc == 0
     lines = [ln for ln in out.strip().split("\n") if ln][1:]
     want = [
-        f"{a}\t{b}\t{d}\t{dp}\t{r2}"
-        for a, b, d, dp, r2 in T7_GOLDEN["pairs"]
+        f"{a}\t{b}\t{round(d, 4)!r}\t{round(dp, 4)!r}\t{round(r2, 4)!r}"
+        for (a, b), (d, dp, r2) in sorted(
+            synthetic_t7_reference_pairs().items())
     ]
     assert lines == want
 
 
-def test_cli_stream_ingest_fasta(capsys):
-    """Round 5: --stream-ingest streams FASTA too (default framing only)."""
-    from weightedld_tpu.cli import main
+def test_cli_stream_ingest_fasta(tmp_path, capsys):
+    """--stream-ingest streams FASTA too (default framing only)."""
+    from weightedld.cli import main
 
-    ex = "/root/reference/tests/example.fasta"
+    ex = tmp_path / "example.fasta"
+    write_fasta(ex, ALL_FASTAS["example"])
+    ex = str(ex)
     assert main(["--file", ex, "--engine", "tiled"]) == 0
     batch = capsys.readouterr().out
     assert main(["--file", ex, "--engine", "tiled", "--stream-ingest"]) == 0
@@ -300,9 +323,9 @@ def test_cli_stream_ingest_fasta(capsys):
 
 
 def test_cli_stream_ingest_rejects_save_prepared(tmp_path, capsys):
-    from weightedld_tpu.cli import main
+    from weightedld.cli import main
 
-    rc = main(["--file", T7_PATH, "--stream-ingest",
+    rc = main(["--file", synthetic_t7_path(), "--stream-ingest",
                "--save-prepared", str(tmp_path / "p.npz")])
     assert rc == 2
     assert "--save-prepared" in capsys.readouterr().err
@@ -332,7 +355,7 @@ def _write_fasta(tmp_path, text, name="x.fasta"):
 
 
 def test_scan_fasta_matches_batch_reader(tmp_path):
-    from weightedld_tpu.io.fasta import read_fasta_with_names, scan_fasta
+    from weightedld.io.fasta import read_fasta_with_names, scan_fasta
 
     # Wrapped records, blank lines, ambiguity, gaps.
     p = _write_fasta(tmp_path,
@@ -344,7 +367,7 @@ def test_scan_fasta_matches_batch_reader(tmp_path):
 
 
 def test_scan_fasta_error_parity(tmp_path):
-    from weightedld_tpu.io.fasta import scan_fasta
+    from weightedld.io.fasta import scan_fasta
 
     with pytest.raises(ValueError, match="ragged alignment: sequence 1"):
         scan_fasta(_write_fasta(tmp_path, ">a\nACGT\n>b\nACG\n"))
@@ -355,12 +378,13 @@ def test_scan_fasta_error_parity(tmp_path):
 
 
 def test_prepare_fasta_streamed_matches_pipeline(tmp_path):
-    from weightedld_tpu.pipeline import WldConfig, prepare
-    from weightedld_tpu.runtime.ingest import prepare_fasta_streamed
+    from weightedld.pipeline import WldConfig, prepare
+    from weightedld.runtime.ingest import prepare_fasta_streamed
 
     # t1 has junk columns (UNKNOWN-heavy) that the masks drop.
-    for fixture in ("/root/reference/tests/t1_henikoff_paper.fasta",
-                    "/root/reference/tests/example.fasta"):
+    for name in ("t1", "example"):
+        fixture = tmp_path / f"{name}.fasta"
+        write_fasta(fixture, ALL_FASTAS[name])
         res = prepare(fixture, WldConfig())
         smc, site_map, hk, ld = prepare_fasta_streamed(fixture)
         assert site_map.tolist() == res.site_map.tolist()
@@ -378,9 +402,9 @@ def test_prepare_fasta_streamed_matches_pipeline(tmp_path):
 def test_streamed_fasta_session_matches_standard(tmp_path):
     import jax
 
-    from weightedld_tpu.parallel.sharded import default_mesh
-    from weightedld_tpu.runtime.driver import collect_ld_records
-    from weightedld_tpu.runtime.ingest import prepare_fasta_streamed
+    from weightedld.parallel.sharded import default_mesh
+    from weightedld.runtime.driver import collect_ld_records
+    from weightedld.runtime.ingest import prepare_fasta_streamed
 
     rng = np.random.default_rng(11)
     rows = []
@@ -392,13 +416,12 @@ def test_streamed_fasta_session_matches_standard(tmp_path):
         rows.append(">s%d\n%s" % (i, "".join(seq)))
     p = _write_fasta(tmp_path, "\n".join(rows) + "\n")
 
-    from weightedld_tpu.pipeline import WldConfig, prepare
+    from weightedld.pipeline import WldConfig, prepare
 
     res = prepare(p, WldConfig())
     mesh = default_mesh(jax.devices()[:2])
-    cfg = DriverConfig(tile=16, seq_chunk=128, engine="pallas",
-                       tiles_per_shard_batch=2)
-    smc, site_map, _, _ = prepare_fasta_streamed(p, cfg=cfg, platform="cpu")
+    cfg = DriverConfig(tile=16, seq_chunk=128, tiles_per_shard_batch=2)
+    smc, site_map, _, _ = prepare_fasta_streamed(p, cfg=cfg)
     w = henikoff_weights_host_site_major(smc.codes, smc.n_sites, smc.n_seqs)
     rec_s = collect_ld_records(smc, w, site_map, cfg, mesh=mesh)
     rec_b = collect_ld_records(res.alignment, res.weights, res.site_map,
@@ -413,8 +436,8 @@ def test_streamed_fasta_session_matches_standard(tmp_path):
 
 
 def test_streamed_fasta_gzip_and_file_changed(tmp_path):
-    from weightedld_tpu.io.fasta import read_fasta_site_major, scan_fasta
-    from weightedld_tpu.runtime.ingest import prepare_fasta_streamed
+    from weightedld.io.fasta import read_fasta_site_major, scan_fasta
+    from weightedld.runtime.ingest import prepare_fasta_streamed
 
     text = ">a\nACGT\n>b\nACGA\n>c\nTCGA\n>d\nAAGA\n"
     p = _write_fasta(tmp_path, text)
@@ -435,13 +458,13 @@ def test_streamed_fasta_gzip_and_file_changed(tmp_path):
 def test_session_from_fasta_matches_standard(tmp_path):
     import jax
 
-    from weightedld_tpu.parallel.sharded import default_mesh
-    from weightedld_tpu.pipeline import WldConfig, prepare
-    from weightedld_tpu.runtime.ingest import session_from_fasta
+    from weightedld.parallel.sharded import default_mesh
+    from weightedld.pipeline import WldConfig, prepare
+    from weightedld.runtime.ingest import session_from_fasta
 
-    ex = "/root/reference/tests/example.fasta"
-    cfg = DriverConfig(tile=16, seq_chunk=128, engine="pallas",
-                       tiles_per_shard_batch=2)
+    ex = tmp_path / "example.fasta"
+    write_fasta(ex, ALL_FASTAS["example"])
+    cfg = DriverConfig(tile=16, seq_chunk=128, tiles_per_shard_batch=2)
     mesh = default_mesh(jax.devices()[:2])
     s = session_from_fasta(ex, cfg=cfg, mesh=mesh)
     got = {}
@@ -459,9 +482,9 @@ def test_session_from_fasta_matches_standard(tmp_path):
 def test_streamed_fasta_sample_subsetting(tmp_path, capsys):
     """Streamed FASTA subsetting equals the batch pipeline's (subset
     before masks/weights), including under wrapped records and gzip."""
-    from weightedld_tpu.cli import main
-    from weightedld_tpu.pipeline import WldConfig, prepare
-    from weightedld_tpu.runtime.ingest import prepare_fasta_streamed
+    from weightedld.cli import main
+    from weightedld.pipeline import WldConfig, prepare
+    from weightedld.runtime.ingest import prepare_fasta_streamed
 
     rows = ["ATAA", "TAAA", "TAAA", "TAAA", "T-AA",
             "TTAA", "TTAA", "TTAA", "TTAA", "TTAY"]
@@ -495,14 +518,15 @@ def test_streamed_fasta_sample_subsetting(tmp_path, capsys):
 def test_streamed_vcf_sample_subsetting():
     """Streamed VCF subsetting: buffer equals the batch pipeline's subset
     alignment (rot90-aware mapping), weights match."""
-    from weightedld_tpu.io.vcf import vcf_sample_names
-    from weightedld_tpu.pipeline import WldConfig, prepare
+    from weightedld.io.vcf import vcf_sample_names
+    from weightedld.pipeline import WldConfig, prepare
 
-    names = vcf_sample_names(T7_PATH)
+    vcf = synthetic_t7_path()
+    names = vcf_sample_names(vcf)
     keep = tuple(names[:40])
-    res = prepare(T7_PATH, WldConfig(keep_samples=keep))
+    res = prepare(vcf, WldConfig(keep_samples=keep))
     sm, site_map = prepare_vcf_streamed(
-        T7_PATH, cfg=DriverConfig(tile=8, seq_chunk=8, engine="pallas"),
+        vcf, cfg=DriverConfig(tile=8, seq_chunk=8),
         keep_samples=keep)
     assert sm.n_seqs == 80 and site_map.tolist() == res.site_map.tolist()
     np.testing.assert_array_equal(
@@ -510,15 +534,14 @@ def test_streamed_vcf_sample_subsetting():
     w = henikoff_weights_host_site_major(sm.codes, sm.n_sites, sm.n_seqs)
     np.testing.assert_allclose(w, res.weights, rtol=1e-12)
     with pytest.raises(ValueError, match="unknown sample name"):
-        prepare_vcf_streamed(T7_PATH, keep_samples=("NOPE",),
-                             cfg=DriverConfig(tile=8, seq_chunk=8,
-                                              engine="pallas"))
+        prepare_vcf_streamed(vcf, keep_samples=("NOPE",),
+                             cfg=DriverConfig(tile=8, seq_chunk=8))
 
 
 def test_streamed_fasta_subset_drift_detected(tmp_path):
     """Records appended between passes under subsetting: pass 2 refuses
     with the clean 'file changed' error (not an IndexError)."""
-    from weightedld_tpu.io.fasta import read_fasta_site_major, scan_fasta
+    from weightedld.io.fasta import read_fasta_site_major, scan_fasta
 
     text = ">a\nACGT\n>b\nACGA\n>c\nTCGA\n"
     p = tmp_path / "x.fasta"

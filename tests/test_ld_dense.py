@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from weightedld_tpu.core.encode import encode_alignment
-from weightedld_tpu.core.ld_dense import extract_records, ld_all_pairs_dense
-from weightedld_tpu.pipeline import WldConfig, prepare_fasta
+from weightedld.core.encode import encode_alignment
+from weightedld.core.ld_dense import extract_records, ld_all_pairs_dense
+from weightedld.pipeline import WldConfig, prepare_fasta
 
 from .fixtures import ALL_FASTAS, GOLDEN, random_alignment, write_fasta
 from .oracle import oracle_ld

@@ -1,7 +1,7 @@
-"""CI twin of the driver's multichip dry run: the full sharded-runner
-battery (pallas-interpret kernel, windowed plans, every analytics runner,
-streamed site-major ingest) on the suite's 8-virtual-device CPU mesh —
-SURVEY §4's multi-chip mandate, VERDICT r1 item 8."""
+"""CPU twin of the multi-device dry run: the full sharded-runner battery
+(both engine forms, windowed plans, every analytics runner, streamed
+site-major ingest) on the suite's 8-virtual-device CPU mesh — SURVEY §4's
+multi-device mandate."""
 
 import sys
 from pathlib import Path

@@ -13,12 +13,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from weightedld_tpu.io import native
-from weightedld_tpu.io.fasta import (
+from weightedld.io import native
+from weightedld.io.fasta import (
     read_fasta_with_names,
     read_fasta_with_names_python,
 )
-from weightedld_tpu.io.vcf import VcfError, read_vcf_python
+from weightedld.io.vcf import VcfError, read_vcf_python
 
 from .fixtures import ALL_FASTAS, T7_PATH, write_fasta
 
@@ -330,7 +330,7 @@ def test_gzip_fasta_both_backends(tmp_path):
 def test_gzip_vcf_both_backends_and_dispatch(tmp_path):
     import gzip
 
-    import weightedld_tpu as wld
+    import weightedld as wld
 
     gts = ["0|1"] * 8 + ["1|1"] * 4 + ["0|0"] * 4
     plain = _mk_vcf(tmp_path, [_row(1000, gts), _row(2000, gts)])
@@ -374,8 +374,8 @@ def test_gzip_trailing_garbage_rejected(tmp_path):
 
 
 def test_missing_file_raises_oserror(tmp_path):
-    from weightedld_tpu.io.fasta import read_fasta_with_names
-    from weightedld_tpu.io.vcf import read_vcf
+    from weightedld.io.fasta import read_fasta_with_names
+    from weightedld.io.vcf import read_vcf
 
     with pytest.raises(FileNotFoundError):
         read_fasta_with_names(tmp_path / "nope.fasta")
@@ -469,8 +469,8 @@ def test_format_pairs_repr_round_parity(ndigits):
 def test_write_pairs_native_matches_python(monkeypatch):
     import io
 
-    from weightedld_tpu.core.ld_dense import LdRecords
-    from weightedld_tpu.io.writer import write_pairs
+    from weightedld.core.ld_dense import LdRecords
+    from weightedld.io.writer import write_pairs
 
     rng = np.random.default_rng(5)
     n = 5000
@@ -492,7 +492,7 @@ def test_write_pairs_native_matches_python(monkeypatch):
 def test_write_weights_native_matches_python(monkeypatch):
     import io
 
-    from weightedld_tpu.io.writer import write_weights
+    from weightedld.io.writer import write_weights
 
     rng = np.random.default_rng(6)
     w = np.concatenate([rng.uniform(0, 1, 2000), [1.0, 0.0, 0.5, 1e-5]])
@@ -546,8 +546,8 @@ def test_format_negative_ndigits_uses_python_path():
     # must route negative ndigits to the Python formatter.
     import io
 
-    from weightedld_tpu.core.ld_dense import LdRecords
-    from weightedld_tpu.io.writer import write_pairs
+    from weightedld.core.ld_dense import LdRecords
+    from weightedld.io.writer import write_pairs
 
     rec = LdRecords(
         pos_a=np.array([0], np.int64), pos_b=np.array([1], np.int64),
@@ -580,7 +580,7 @@ def test_formatter_locale_independent():
     import ctypes
     import ctypes.util
 
-    from weightedld_tpu.io import native
+    from weightedld.io import native
 
     if not native.available():
         pytest.skip("native library not built")
@@ -609,8 +609,8 @@ def test_transpose_pad_parity_and_size_gate():
     # The native blocked transpose must be bit-identical to the numpy
     # oracle, including both padding regions and awkward (non-multiple)
     # shapes that straddle the 128-block boundaries.
-    from weightedld_tpu.io import native
-    from weightedld_tpu.ops.pallas_ld import pad_alignment_site_major
+    from weightedld.io import native
+    from weightedld.core.majmin import pad_alignment_site_major
 
     if not native.available():
         pytest.skip("native library not built")

@@ -6,10 +6,17 @@ import os
 import numpy as np
 import pytest
 
-from weightedld_tpu.io.writer import PAIR_HEADER, write_pairs
-from weightedld_tpu.pipeline import WldConfig, run
+from weightedld.io.writer import PAIR_HEADER, write_pairs
+from weightedld.pipeline import WldConfig, run
 
-from .fixtures import ALL_FASTAS, GOLDEN, T7_GOLDEN, T7_PATH, write_fasta
+from .fixtures import (
+    ALL_FASTAS,
+    GOLDEN,
+    T7_GOLDEN,
+    T7_PATH,
+    synthetic_t7_path,
+    write_fasta,
+)
 
 
 @pytest.mark.parametrize("name", ["example", "t3", "t4"])
@@ -75,10 +82,10 @@ def test_end_to_end_t7_vcf():
 
 
 def test_fasta_keep_exclude_equals_row_slice(tmp_path):
-    from weightedld_tpu.core.henikoff import henikoff_weights_host
-    from weightedld_tpu.core.sites import compute_variable_sites_host
-    from weightedld_tpu.io.fasta import read_fasta_with_names
-    from weightedld_tpu.pipeline import prepare
+    from weightedld.core.henikoff import henikoff_weights_host
+    from weightedld.core.sites import compute_variable_sites_host
+    from weightedld.io.fasta import read_fasta_with_names
+    from weightedld.pipeline import prepare
 
     path = tmp_path / "e.fasta"
     write_fasta(path, ["ATAA", "TAAA", "TAAA", "TAAA", "T-AA",
@@ -96,12 +103,12 @@ def test_fasta_keep_exclude_equals_row_slice(tmp_path):
 
 
 def test_vcf_keep_samples_row_mapping():
-    from weightedld_tpu.io.vcf import read_vcf, vcf_sample_names
-    from weightedld_tpu.pipeline import prepare
+    from weightedld.io.vcf import read_vcf, vcf_sample_names
+    from weightedld.pipeline import prepare
 
-    full, _ = read_vcf(T7_PATH)
-    names = vcf_sample_names(T7_PATH)
-    res = prepare(T7_PATH, WldConfig(keep_samples=tuple(names[:5])))
+    full, _ = read_vcf(synthetic_t7_path())
+    names = vcf_sample_names(synthetic_t7_path())
+    res = prepare(synthetic_t7_path(), WldConfig(keep_samples=tuple(names[:5])))
     # Alignment row k belongs to sample (n_haps-1-k)//2 (rot90 order):
     # the first 5 samples are the LAST 10 rows.
     n = full.shape[0]
@@ -111,19 +118,19 @@ def test_vcf_keep_samples_row_mapping():
 
 
 def test_subset_errors():
-    from weightedld_tpu.pipeline import prepare
+    from weightedld.pipeline import prepare
 
     with pytest.raises(ValueError, match="unknown sample name"):
-        prepare(T7_PATH, WldConfig(keep_samples=("NOPE1", "HG00096")))
+        prepare(synthetic_t7_path(), WldConfig(keep_samples=("NOPE1", "HG00096")))
     with pytest.raises(ValueError, match="fewer than 2"):
-        prepare(T7_PATH, WldConfig(keep_samples=("HG00096",),
+        prepare(synthetic_t7_path(), WldConfig(keep_samples=("HG00096",),
                                    exclude_samples=("HG00096",)))
     with pytest.raises(ValueError, match="mutually exclusive"):
-        prepare(T7_PATH, WldConfig(chrom="19", region="19:1-2"))
+        prepare(synthetic_t7_path(), WldConfig(chrom="19", region="19:1-2"))
 
 
 def test_region_fasta_rejected(tmp_path):
-    from weightedld_tpu.pipeline import prepare, site_stats
+    from weightedld.pipeline import prepare, site_stats
 
     path = tmp_path / "e.fasta"
     write_fasta(path, ["ATAA", "TAAA", "TTAA", "TTAA"])
@@ -134,26 +141,26 @@ def test_region_fasta_rejected(tmp_path):
 
 
 def test_region_pipeline_and_site_stats():
-    from weightedld_tpu.io.vcf import read_vcf
-    from weightedld_tpu.pipeline import prepare, site_stats
+    from weightedld.io.vcf import read_vcf
+    from weightedld.pipeline import prepare, site_stats
 
     lo, hi = 44890100, 44890180
-    full, sm = read_vcf(T7_PATH)
+    full, sm = read_vcf(synthetic_t7_path())
     sel = (sm >= lo) & (sm <= hi)
-    res = prepare(T7_PATH, WldConfig(region=f"19:{lo}-{hi}"))
+    res = prepare(synthetic_t7_path(), WldConfig(region=f"19:{lo}-{hi}"))
     assert res.site_map.tolist() == sm[sel].tolist()
     np.testing.assert_array_equal(res.alignment, full[:, sel])
     # Weights recomputed on the region slice (not sliced from full weights).
-    from weightedld_tpu.core.henikoff import henikoff_weights_host
+    from weightedld.core.henikoff import henikoff_weights_host
 
     np.testing.assert_allclose(res.weights,
                                henikoff_weights_host(full[:, sel]))
-    stats = site_stats(T7_PATH, WldConfig(region=f"19:{lo}-{hi}"))
+    stats = site_stats(synthetic_t7_path(), WldConfig(region=f"19:{lo}-{hi}"))
     assert stats["site"].tolist() == sm[sel].tolist()
 
 
 def test_site_stats_respects_sample_subset(tmp_path):
-    from weightedld_tpu.pipeline import site_stats
+    from weightedld.pipeline import site_stats
 
     path = tmp_path / "e.fasta"
     write_fasta(path, ["AAAA", "AAAA", "ATAA", "ATAA"])
@@ -165,8 +172,8 @@ def test_site_stats_respects_sample_subset(tmp_path):
 
 
 def test_rust_reader_subsetting(tmp_path):
-    from weightedld_tpu.io.fasta import read_fasta_rust_with_names
-    from weightedld_tpu.pipeline import prepare
+    from weightedld.io.fasta import read_fasta_rust_with_names
+    from weightedld.pipeline import prepare
 
     path = tmp_path / "e.fasta"
     path.write_text(">a\nACGT\n>b\nACGA\n>c\nACGA\n>d\nTCGA\n")
@@ -180,8 +187,8 @@ def test_rust_reader_subsetting(tmp_path):
 def test_haploid_vcf_sample_subsetting(tmp_path):
     """Haploid records (one GT allele per sample): row k maps to sample
     n_haps-1-k — the second _vcf_row_names branch."""
-    from weightedld_tpu.io.vcf import read_vcf
-    from weightedld_tpu.pipeline import prepare
+    from weightedld.io.vcf import read_vcf
+    from weightedld.pipeline import prepare
 
     names = [f"h{i}" for i in range(14)]
     header = ("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
@@ -199,7 +206,7 @@ def test_haploid_vcf_sample_subsetting(tmp_path):
 
 
 def test_mixed_ploidy_subsetting_rejected(tmp_path):
-    from weightedld_tpu.pipeline import prepare
+    from weightedld.pipeline import prepare
 
     names = [f"m{i}" for i in range(13)]
     header = ("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
@@ -223,14 +230,14 @@ def test_region_subset_window_composition(tmp_path, seed):
     dense engine on the slice with the same window filter."""
     import jax.numpy as jnp
 
-    from weightedld_tpu.core.henikoff import henikoff_weights_host
-    from weightedld_tpu.core.ld_dense import (
+    from weightedld.core.henikoff import henikoff_weights_host
+    from weightedld.core.ld_dense import (
         extract_records,
         ld_all_pairs_dense,
     )
-    from weightedld_tpu.io.vcf import read_vcf
-    from weightedld_tpu.pipeline import prepare
-    from weightedld_tpu.runtime.driver import DriverConfig, collect_ld_records
+    from weightedld.io.vcf import read_vcf
+    from weightedld.pipeline import prepare
+    from weightedld.runtime.driver import DriverConfig, collect_ld_records
 
     rng = np.random.default_rng(seed)
     n_samp = 14

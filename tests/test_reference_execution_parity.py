@@ -88,15 +88,15 @@ def _ref_ld_rows(ref, alignment, weights, site_map):
     (108, 40, 18, {"p_gap": 0.02, "p_unknown": 0.25}),
 ])
 def test_masks_weights_ld_match_reference(ref, seed, n_seqs, n_sites, kw):
-    from weightedld_tpu.core.henikoff import henikoff_weights
-    from weightedld_tpu.core.ld_dense import extract_records, ld_all_pairs_dense
-    from weightedld_tpu.core.sites import compute_variable_sites
+    from weightedld.core.henikoff import henikoff_weights
+    from weightedld.core.ld_dense import extract_records, ld_all_pairs_dense
+    from weightedld.core.sites import compute_variable_sites
 
     rng = np.random.default_rng(seed)
     aln = random_alignment(rng, n_seqs, n_sites, **kw)
 
     # Masks: bit-for-bit (host f64 twin, as used by the ingest pipeline).
-    from weightedld_tpu.core.sites import compute_variable_sites_host
+    from weightedld.core.sites import compute_variable_sites_host
 
     hk_r, ld_r = ref.compute_variable_sites(aln, 0.8, 0.02)
     hk_o, ld_o = compute_variable_sites_host(aln, 0.8, 0.02)
@@ -145,7 +145,7 @@ def test_host_f64_weights_bit_equal_to_reference(ref, seed):
     to the executed reference (WeightedLD.py:101-151) — not just
     tolerance-equal — so the weights TSV is unconditionally byte-equal.
     Randomized campaign over gap/ambiguity mixes."""
-    from weightedld_tpu.core.henikoff import henikoff_weights_host
+    from weightedld.core.henikoff import henikoff_weights_host
 
     rng = np.random.default_rng(seed)
     kw = {}
@@ -174,9 +174,9 @@ def test_fixture_weights_tsv_bytes_match_reference(ref):
 
     from .fixtures import ALL_FASTAS
 
-    from weightedld_tpu.core.encode import encode_alignment
-    from weightedld_tpu.io.writer import write_weights
-    from weightedld_tpu.pipeline import _weights_for
+    from weightedld.core.encode import encode_alignment
+    from weightedld.io.writer import write_weights
+    from weightedld.pipeline import _weights_for
 
     for name, seqs in sorted(ALL_FASTAS.items()):
         aln = encode_alignment([s.encode() for s in seqs])
@@ -194,9 +194,9 @@ def test_fixture_weights_tsv_bytes_match_reference(ref):
 def test_fixture_fastas_match_reference_end_to_end(ref, tmp_path):
     from .fixtures import ALL_FASTAS
 
-    from weightedld_tpu.core.henikoff import henikoff_weights
-    from weightedld_tpu.core.ld_dense import extract_records, ld_all_pairs_dense
-    from weightedld_tpu.core.encode import encode_alignment
+    from weightedld.core.henikoff import henikoff_weights
+    from weightedld.core.ld_dense import extract_records, ld_all_pairs_dense
+    from weightedld.core.encode import encode_alignment
 
     for name, seqs in sorted(ALL_FASTAS.items()):
         aln = encode_alignment([s.encode() for s in seqs])
@@ -236,7 +236,7 @@ def test_vcf_matches_reference_execution(ref, tmp_path, name, gts):
     """Run the ACTUAL reference handle_vcf on synthetic files (POS < 256 so
     its uint8 wrap is the identity and it survives modern numpy) and demand
     bit-exact alignment/site_map parity from our reader."""
-    from weightedld_tpu.io.vcf import read_vcf
+    from weightedld.io.vcf import read_vcf
 
     path = tmp_path / f"{name}.vcf"
     path.write_text(
@@ -253,7 +253,7 @@ def test_vcf_fully_missing_call_is_extension(ref, tmp_path):
     """Documented divergence: a fully-missing diploid call '.|.' matches the
     reference's non-digit-pipe strip regex (WeightedLD.py:352) and crashes
     it with an empty token; we decode it as two missing haplotypes."""
-    from weightedld_tpu.io.vcf import read_vcf
+    from weightedld.io.vcf import read_vcf
 
     gts = [".|."] * 4 + ["0|1"] * (SAMPLES - 4)
     path = tmp_path / "missing.vcf"
@@ -276,8 +276,8 @@ def test_zero_weight_corner_documented_divergence(ref):
 
     import jax.numpy as jnp
 
-    from weightedld_tpu.core.ld_dense import extract_records, ld_all_pairs_dense
-    from weightedld_tpu.core.reference_impl import reference_pair
+    from weightedld.core.ld_dense import extract_records, ld_all_pairs_dense
+    from weightedld.core.reference_impl import reference_pair
 
     # Site pair where seq 0 is the sole major-at-A carrier surviving the
     # second filter; its weight is 0.  A: 0 x3 / 1 x3 -> tie, major = 0.
@@ -318,7 +318,7 @@ def test_crash_pairs_are_skipped_exactly(ref):
 
     import jax.numpy as jnp
 
-    from weightedld_tpu.core.ld_dense import extract_records, ld_all_pairs_dense
+    from weightedld.core.ld_dense import extract_records, ld_all_pairs_dense
 
     n_crashes = 0
     for seed in range(24):
@@ -362,7 +362,7 @@ def test_mask_parameter_sweep_matches_reference(ref, min_acgt, min_var):
     # The host f64 masks (used by the ingest pipeline) must be bit-exact
     # even at threshold boundaries like 36/40 == 0.9 (where the jitted f32
     # version can legitimately differ — see compute_variable_sites_host).
-    from weightedld_tpu.core.sites import compute_variable_sites_host
+    from weightedld.core.sites import compute_variable_sites_host
 
     rng = np.random.default_rng(200)
     aln = random_alignment(rng, 40, 30)
@@ -380,13 +380,13 @@ def test_pa_095_boundary_pair_is_skipped(ref):
     Note a Python-float reimplementation would flip this: decimal-correct
     round(0.95, 1) == 0.9 would KEEP the pair.  Executed here against the
     actual reference, the f64 audit engine, the dense engine, and the
-    Pallas kernel."""
+    tiled integer engine."""
     # The two round() semantics really do disagree at this boundary.
     assert round(np.float64(0.95), 1) == 1.0
     assert round(0.95, 1) == 0.9
 
-    from weightedld_tpu.core.ld_dense import extract_records, ld_all_pairs_dense
-    from weightedld_tpu.core.reference_impl import reference_pair
+    from weightedld.core.ld_dense import extract_records, ld_all_pairs_dense
+    from weightedld.core.reference_impl import reference_pair
 
     aln = np.zeros((20, 2), dtype=np.int8)
     aln[0, 0] = 1   # site 0: 19 x A, 1 x C  ->  PA = 19/20 = 0.95 exactly
@@ -402,13 +402,13 @@ def test_pa_095_boundary_pair_is_skipped(ref):
     )
     assert len(rec.pos_a) == 0, "engine kept the exact-0.95 boundary pair"
 
-    from weightedld_tpu.runtime.driver import DriverConfig, LdSession
+    from weightedld.runtime.driver import DriverConfig, LdSession
 
     session = LdSession(aln, np.ones(20, np.float32), np.arange(2),
-                        DriverConfig(engine="pallas", tile=8, seq_chunk=8))
+                        DriverConfig(tile=8, seq_chunk=8))
     pal = [(int(a), int(b))
            for _, r in session.stream() for a, b in zip(r.pos_a, r.pos_b)]
-    assert pal == [], "pallas kernel kept the exact-0.95 boundary pair"
+    assert pal == [], "tile engine kept the exact-0.95 boundary pair"
 
     # Sanity that the rule is not over-aggressive: PA = 18/20 = 0.9 is kept
     # by the reference and by every engine.
@@ -429,12 +429,11 @@ def test_pa_095_boundary_pair_is_skipped(ref):
 
 
 def test_auto_config_session_matches_reference(ref):
-    # The PRODUCTION driver path with every knob auto-resolved (engine
-    # forced to the pallas kernel in interpret mode; tile and seq_chunk
-    # from the auto rules) against the executed reference — guards the
+    # The PRODUCTION driver path with every knob auto-resolved (the
+    # integer tile engine; tile and seq_chunk from the auto rules) against the executed reference — guards the
     # auto policies themselves, not just hand-picked tiny tile configs.
-    from weightedld_tpu.core.sites import compute_variable_sites_host
-    from weightedld_tpu.runtime.driver import DriverConfig, LdSession
+    from weightedld.core.sites import compute_variable_sites_host
+    from weightedld.runtime.driver import DriverConfig, LdSession
 
     rng = np.random.default_rng(990)
     aln = random_alignment(rng, 60, 30, p_gap=0.08, p_unknown=0.08)
@@ -446,7 +445,7 @@ def test_auto_config_session_matches_reference(ref):
     expected = _ref_ld_rows(ref, trimmed, w, site_map)
 
     sess = LdSession(trimmed, np.asarray(w, np.float32), site_map,
-                     DriverConfig(engine="pallas"))
+                     DriverConfig())
     assert sess.cfg.tile == 128 and sess.cfg.seq_chunk == 128  # auto rules
     got = {}
     for _, r in sess.stream():
@@ -476,7 +475,7 @@ def test_unstable_argsort_tie_only_flips_d_sign(ref):
     # the smallest code deterministically.  Whatever the reference picks,
     # |D|, D' and r2 must agree — a top-2 relabeling can only flip D's
     # sign.
-    from weightedld_tpu.core.ld_dense import (extract_records,
+    from weightedld.core.ld_dense import (extract_records,
                                               ld_all_pairs_dense)
 
     col_a = np.array([1, 4, 2, 1, 1, 1, 1, 1, 1, 1, 1], dtype=np.int8)
@@ -506,7 +505,7 @@ def test_vcf_info_pipe_crashes_reference_we_parse(ref, tmp_path):
     # split shifts the column indexing and int('GT') raises ValueError —
     # the reference defines no output for such files.  The column-wise
     # reader parses them correctly (io/vcf.py 'Extensions').
-    from weightedld_tpu.io.vcf import read_vcf
+    from weightedld.io.vcf import read_vcf
 
     hdr = ("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
            + "\t".join(f"s{i}" for i in range(14)))
@@ -537,9 +536,9 @@ def test_windowed_packed_session_matches_reference(ref, seed, n_seqs,
     the packed windowed session's records must equal the reference's full
     all-pairs output restricted to kept-index distance <= window (the
     window semantics), with the usual count-tie exclusion."""
-    from weightedld_tpu.core.henikoff import henikoff_weights
-    from weightedld_tpu.core.sites import compute_variable_sites_host
-    from weightedld_tpu.runtime.driver import DriverConfig, LdSession
+    from weightedld.core.henikoff import henikoff_weights
+    from weightedld.core.sites import compute_variable_sites_host
+    from weightedld.runtime.driver import DriverConfig, LdSession
 
     rng = np.random.default_rng(seed)
     aln = random_alignment(rng, n_seqs, n_sites, p_gap=0.05, p_unknown=0.0)
@@ -560,8 +559,7 @@ def test_windowed_packed_session_matches_reference(ref, seed, n_seqs,
                 if pos_to_col[k[1]] - pos_to_col[k[0]] <= window}
 
     ses = LdSession(trimmed, np.asarray(w_r, np.float32), site_map,
-                    DriverConfig(tile=8, seq_chunk=16, engine="pallas",
-                                 r2_threshold=None,
+                    DriverConfig(tile=8, seq_chunk=16, r2_threshold=None,
                                  max_site_distance=window))
     dirty_kept = int(((trimmed == 5).any(axis=0)).sum())
     if dirty_kept:

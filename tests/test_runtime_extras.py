@@ -5,8 +5,8 @@ import json
 import numpy as np
 import pytest
 
-from weightedld_tpu.cli import main
-from weightedld_tpu.runtime.driver import DriverConfig, LdSession
+from weightedld.cli import main
+from weightedld.runtime.driver import DriverConfig, LdSession
 
 from .fixtures import ALL_FASTAS, random_alignment, write_fasta
 
@@ -14,7 +14,7 @@ from .fixtures import ALL_FASTAS, random_alignment, write_fasta
 def test_session_summarize_matches_dense(rng):
     import jax.numpy as jnp
 
-    from weightedld_tpu.core.ld_dense import ld_all_pairs_dense
+    from weightedld.core.ld_dense import ld_all_pairs_dense
 
     aln = random_alignment(rng, 32, 64)
     w = np.ones(32, dtype=np.float32)
@@ -60,7 +60,7 @@ def test_cli_stats_only_tiled(tmp_path, capsys):
 
 
 def test_stage_timer():
-    from weightedld_tpu.runtime.profiling import StageTimer
+    from weightedld.runtime.profiling import StageTimer
 
     t = StageTimer()
     with t.stage("a"):
@@ -72,7 +72,7 @@ def test_stage_timer():
 
 
 def test_multihost_single_process_noop():
-    from weightedld_tpu.parallel.multihost import (
+    from weightedld.parallel.multihost import (
         global_mesh,
         initialize_distributed,
         is_output_process,
@@ -85,7 +85,7 @@ def test_multihost_single_process_noop():
 
 
 def test_fast_gt_block_parser():
-    from weightedld_tpu.io.vcf import _fast_parse_gt_block
+    from weightedld.io.vcf import _fast_parse_gt_block
 
     row = _fast_parse_gt_block("0|1\t.|.\t1/0\t5|0")
     assert row is not None
@@ -99,7 +99,7 @@ def test_fast_gt_block_parser():
 
 
 def test_fast_and_slow_vcf_paths_agree(tmp_path):
-    from weightedld_tpu.io.vcf import read_vcf
+    from weightedld.io.vcf import read_vcf
 
     header = ("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
               + "\t".join(f"s{i}" for i in range(14)))
@@ -119,7 +119,7 @@ def test_fast_and_slow_vcf_paths_agree(tmp_path):
 
 
 def test_checkpoint_fingerprint_mismatch_refused(rng, tmp_path):
-    from weightedld_tpu.runtime.driver import run_to_tsv
+    from weightedld.runtime.driver import run_to_tsv
 
     aln = random_alignment(rng, 20, 48)
     w = np.ones(20, dtype=np.float32)
@@ -149,76 +149,68 @@ def test_load_prepared_flag_mismatch_warns(tmp_path, capsys):
 
 
 def test_resolve_tile_auto():
-    # Explicit tile always wins; on CPU (this suite) auto resolves to 128
-    # for every engine (T=256 is a TPU-only win).
+    # Explicit tile always wins; auto resolves to TILE_AUTO for every
+    # engine and input (no device-dependent rule).
     import numpy as np
 
-    from weightedld_tpu.runtime.driver import resolve_tile
+    from weightedld.runtime.driver import TILE_AUTO, resolve_tile
 
     aln = np.zeros((4, 8), dtype=np.int8)
-    assert resolve_tile(64, "pallas", aln) == 64
-    assert resolve_tile(None, "xla", aln) == 128
-    assert resolve_tile(None, "pallas", aln) == 128  # CPU platform
+    assert resolve_tile(64) == 64
+    assert resolve_tile(None) == TILE_AUTO
     # A session records the resolved tile on ITS OWN config copy; the
     # caller's config is never mutated (one DriverConfig can be reused
     # across sessions with different inputs).
-    from weightedld_tpu.runtime.driver import DriverConfig, LdSession
+    from weightedld.runtime.driver import DriverConfig, LdSession
 
-    cfg = DriverConfig(engine="xla")
-    sess = LdSession(aln, np.ones(4, np.float32), np.arange(8), cfg)
-    assert sess.cfg.tile == 128
-    assert cfg.tile is None
-    assert cfg.tiles_per_shard_batch is None
+    for engine in ("xla", "auto"):
+        cfg = DriverConfig(engine=engine)
+        sess = LdSession(aln, np.ones(4, np.float32), np.arange(8), cfg)
+        assert sess.cfg.tile == TILE_AUTO
+        assert cfg.tile is None
+        assert cfg.tiles_per_shard_batch is None
 
 
 def test_resolve_seq_chunk_auto():
-    # Auto minimizes the modeled per-tile cost n_chunks * (FIXED + chunk):
-    # padded columns are computed work, every extra grid step pays a fixed
-    # cost.  Explicit always wins.
-    from weightedld_tpu.runtime.driver import (
-        _CHUNK_FIXED_COST, SEQ_CHUNKS, resolve_seq_chunk)
+    # The sequence axis pads to a multiple of DEFAULT_SEQ_CHUNK unless an
+    # explicit multiple is given; the padded width is what the session's
+    # weight rows and code buffer carry.
+    from weightedld.core.majmin import DEFAULT_SEQ_CHUNK
+    from weightedld.runtime.driver import resolve_seq_chunk
 
-    assert resolve_seq_chunk(512, 1000) == 512         # explicit wins
-    assert resolve_seq_chunk(None, 1000) == 1024       # one 1024 chunk
-    assert resolve_seq_chunk(None, 100) == 128         # minimal padding
-    assert resolve_seq_chunk(None, 1024) == 1024
-    assert resolve_seq_chunk(None, 10240) == 2048      # exact multiple: max
-    # The padding-only rule regression: N=10,000 must NOT pick sc=128 for
-    # a 1.3% padding saving at 16x the grid steps (measured 378 M vs
-    # ~490 M pairs/s at the pod config).
-    assert resolve_seq_chunk(None, 10000) == 2048
-    assert resolve_seq_chunk(None, 1) == 128
-    for n in (1, 7, 100, 513, 999, 1025, 2500, 4097, 50000):
-        auto = resolve_seq_chunk(None, n)
-        cost = lambda c: -(-n // c) * (_CHUNK_FIXED_COST + c)
-        assert cost(auto) == min(cost(c) for c in SEQ_CHUNKS)
-        # Ties break toward the larger chunk.
-        assert all(cost(c) > cost(auto) for c in SEQ_CHUNKS if c > auto)
-    # The session resolves seq_chunk onto its own config copy.
+    assert resolve_seq_chunk(512) == 512         # explicit wins
+    assert resolve_seq_chunk(None) == DEFAULT_SEQ_CHUNK
+    # The session resolves seq_chunk onto its own config copy and pads N
+    # to it.
     import numpy as np
 
-    from weightedld_tpu.runtime.driver import DriverConfig, LdSession
+    from weightedld.runtime.driver import DriverConfig, LdSession
 
     aln = np.zeros((4, 8), dtype=np.int8)
-    cfg = DriverConfig(engine="xla")
+    aln[:2, 1] = 1
+    cfg = DriverConfig()
     sess = LdSession(aln, np.ones(4, np.float32), np.arange(8), cfg)
-    assert sess.cfg.seq_chunk == 128
+    assert sess.cfg.seq_chunk == DEFAULT_SEQ_CHUNK
     assert cfg.seq_chunk is None
+    assert sess.codes_dev.shape[1] == DEFAULT_SEQ_CHUNK
+    assert sess.weights_dev.shape[-1] == DEFAULT_SEQ_CHUNK
+    sess = LdSession(aln, np.ones(4, np.float32), np.arange(8),
+                     DriverConfig(seq_chunk=16))
+    assert sess.codes_dev.shape[1] == 16
 
 
 def test_seq_chunk_invariance(rng):
     # The pair population and site indices must be IDENTICAL whatever the
     # sequence chunking (auto or explicit, single- or multi-chunk); the
-    # f32 stats may differ in reduction order only.  Covers the
-    # single_chunk direct-store specialization against the accumulate
-    # path through the full driver (pallas interpret mode).
+    # f32 stats may differ in reduction order only, through the full
+    # driver.
     aln = random_alignment(rng, 150, 40)
     w = (rng.random(150) + 0.05).astype(np.float32)
     sm = np.arange(40)
 
     def collect(sc):
         sess = LdSession(aln, w, sm, DriverConfig(
-            engine="pallas", tile=8, seq_chunk=sc))
+            tile=8, seq_chunk=sc))
         recs = [r for _, r in sess.stream()]
         return (
             np.concatenate([r.pos_a for r in recs]),
@@ -226,7 +218,7 @@ def test_seq_chunk_invariance(rng):
             np.concatenate([r.r2 for r in recs]),
         )
 
-    base_a, base_b, base_r2 = collect(None)  # auto: 256 -> one chunk
+    base_a, base_b, base_r2 = collect(None)  # auto padding multiple
     for sc in (64, 128):                     # multi- and 2-chunk paths
         pa, pb, r2 = collect(sc)
         np.testing.assert_array_equal(pa, base_a)
@@ -239,7 +231,7 @@ def test_checkpoint_refuses_weight_quant_switch(rng, tmp_path):
     # TSV: weight_quant is part of the run fingerprint.  Simulate an
     # interrupt after the first batch, then try to resume in a different
     # mode.
-    from weightedld_tpu.runtime import driver as drv
+    from weightedld.runtime import driver as drv
 
     aln = random_alignment(rng, 20, 48)
     w = (rng.random(20) + 0.05).astype(np.float32)
@@ -289,10 +281,9 @@ def test_save_prepared_honors_exact_path(tmp_path):
 
 
 def test_multiprocess_env_heuristics(monkeypatch):
-    from weightedld_tpu.parallel.multihost import _multiprocess_env
+    from weightedld.parallel.multihost import _multiprocess_env
 
     for var in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-                "MEGASCALE_COORDINATOR_ADDRESS", "TPU_WORKER_HOSTNAMES",
                 "SLURM_NTASKS", "SLURM_PROCID", "SLURM_STEP_NUM_TASKS"):
         monkeypatch.delenv(var, raising=False)
     assert not _multiprocess_env()
@@ -312,7 +303,7 @@ def test_multiprocess_env_heuristics(monkeypatch):
 def test_vcf_negative_allele_rejected(tmp_path):
     import pytest
 
-    from weightedld_tpu.io.vcf import VcfError, read_vcf
+    from weightedld.io.vcf import VcfError, read_vcf
 
     header = ("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
               + "\t".join(f"s{i}" for i in range(12)))

@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from weightedld_tpu.core.encode import encode_alignment
-from weightedld_tpu.core.sites import compute_variable_sites
+from weightedld.core.encode import encode_alignment
+from weightedld.core.sites import compute_variable_sites
 
 from .fixtures import ALL_FASTAS, GOLDEN, T6_VARSITES_HK_LD, random_alignment
 from .oracle import oracle_variable_sites
@@ -33,7 +33,7 @@ def test_t6_high_variability():
 
 
 def test_rust_variant_filter():
-    from weightedld_tpu.core.sites import compute_variable_sites_rust
+    from weightedld.core.sites import compute_variable_sites_rust
 
     # t1: cols 0-1 fail coverage; cols 2-6 have maj=2, dom-minor=2 ->
     # frac 0.5, kept at default thresholds (<= max_minor 0.5 inclusive).

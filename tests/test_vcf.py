@@ -6,10 +6,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from weightedld_tpu.core.henikoff import henikoff_weights
-from weightedld_tpu.io.vcf import VcfError, read_vcf
+from weightedld.core.henikoff import henikoff_weights
+from weightedld.io.vcf import VcfError, read_vcf
 
-from .fixtures import T7_GOLDEN, T7_PATH
+from .fixtures import (
+    SYN7_IDS,
+    SYN7_SAMPLES,
+    T7_GOLDEN,
+    T7_PATH,
+    synthetic_t7_path,
+)
 
 SAMPLES = 16
 
@@ -117,7 +123,7 @@ def test_allele_out_of_alphabet_rejected(tmp_path):
 
 
 def test_chrom_filter(tmp_path):
-    from weightedld_tpu.io.vcf import VcfError, read_vcf
+    from weightedld.io.vcf import VcfError, read_vcf
 
     header = ("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
               + "\t".join(f"s{i}" for i in range(14)))
@@ -147,8 +153,8 @@ def test_chrom_filter(tmp_path):
 
 
 def test_list_chromosomes(tmp_path, capsys):
-    from weightedld_tpu.cli import main
-    from weightedld_tpu.io.vcf import list_chromosomes
+    from weightedld.cli import main
+    from weightedld.io.vcf import list_chromosomes
 
     header = ("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
               + "\t".join(f"s{i}" for i in range(14)))
@@ -165,8 +171,8 @@ def test_list_chromosomes(tmp_path, capsys):
     # chr3's only record falls to the reference's trailing-line drop: it
     # must NOT be listed (read_vcf(chrom="chr3") would raise).
     assert list_chromosomes(f) == ["chr2", "chr1"]
-    # t7 fixture: single chromosome.
-    assert list_chromosomes(T7_PATH) == ["19"]
+    # t7-shaped fixture: single chromosome.
+    assert list_chromosomes(synthetic_t7_path()) == ["19"]
 
     # CLI query mode: prints one CHROM per line, runs no analysis.
     assert main(["--file", str(f), "--list-chroms"]) == 0
@@ -179,7 +185,7 @@ def test_list_chromosomes(tmp_path, capsys):
 
 
 def test_chrom_flag_cli(tmp_path, capsys):
-    from weightedld_tpu.cli import main
+    from weightedld.cli import main
 
     header = ("#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
               + "\t".join(f"s{i}" for i in range(14)))
@@ -219,7 +225,7 @@ def test_chrom_flag_cli(tmp_path, capsys):
 
 
 def test_parse_region_forms():
-    from weightedld_tpu.io.vcf import parse_region
+    from weightedld.io.vcf import parse_region
 
     assert parse_region("chr19") == ("chr19", None)
     assert parse_region("19:100-200") == ("19", (100, 200))
@@ -234,50 +240,51 @@ def test_parse_region_forms():
 
 
 def test_read_vcf_pos_range_is_a_column_slice():
-    full, sm = read_vcf(T7_PATH)
+    full, sm = read_vcf(synthetic_t7_path())
     lo, hi = 44890100, 44890180
-    sub, sm_sub = read_vcf(T7_PATH, pos_range=(lo, hi))
+    sub, sm_sub = read_vcf(synthetic_t7_path(), pos_range=(lo, hi))
     sel = (sm >= lo) & (sm <= hi)
     assert sm_sub.tolist() == sm[sel].tolist()
     np.testing.assert_array_equal(sub, full[:, sel])
     # Composes with the chrom filter.
-    both, sm_both = read_vcf(T7_PATH, chrom="19", pos_range=(lo, hi))
+    both, sm_both = read_vcf(synthetic_t7_path(), chrom="19", pos_range=(lo, hi))
     np.testing.assert_array_equal(both, sub)
 
 
 def test_pos_range_no_records_is_clean_error():
     with pytest.raises(VcfError, match="POS range 1-2"):
-        read_vcf(T7_PATH, pos_range=(1, 2))
-    from weightedld_tpu.io.vcf import scan_vcf
+        read_vcf(synthetic_t7_path(), pos_range=(1, 2))
+    from weightedld.io.vcf import scan_vcf
 
     with pytest.raises(VcfError, match="POS range 1-2"):
-        scan_vcf(T7_PATH, pos_range=(1, 2))
+        scan_vcf(synthetic_t7_path(), pos_range=(1, 2))
 
 
 def test_scan_and_site_major_respect_pos_range():
-    from weightedld_tpu.io.vcf import read_vcf_site_major, scan_vcf
+    from weightedld.io.vcf import read_vcf_site_major, scan_vcf
 
     lo, hi = 44890100, 44890180
-    n_haps, sm = scan_vcf(T7_PATH, pos_range=(lo, hi))
-    assert n_haps == 5008 and sm.tolist() == [44890114, 44890164, 44890171]
-    codes, sm2, n2 = read_vcf_site_major(T7_PATH, pos_range=(lo, hi))
+    n_haps, sm = scan_vcf(synthetic_t7_path(), pos_range=(lo, hi))
+    assert n_haps == 2 * SYN7_SAMPLES
+    assert sm.tolist() == [44890114, 44890164, 44890171]
+    codes, sm2, n2 = read_vcf_site_major(synthetic_t7_path(), pos_range=(lo, hi))
     assert n2 == n_haps and sm2.tolist() == sm.tolist()
-    row_major, _ = read_vcf(T7_PATH, pos_range=(lo, hi))
+    row_major, _ = read_vcf(synthetic_t7_path(), pos_range=(lo, hi))
     # codes[s, k] == alignment[k, s] (the rot90 reversal is baked into the
     # site-major column order — read_vcf_site_major docstring).
     np.testing.assert_array_equal(codes.T, row_major)
 
 
 def test_vcf_sample_names_t7():
-    from weightedld_tpu.io.vcf import vcf_sample_names
+    from weightedld.io.vcf import vcf_sample_names
 
-    names = vcf_sample_names(T7_PATH)
-    assert len(names) == 2504
-    assert names[0] == "HG00096" and names[-1] == "NA21144"
+    names = vcf_sample_names(synthetic_t7_path())
+    assert len(names) == SYN7_SAMPLES
+    assert names[0] == "HG00096" and names[-1] == "HG00159"
 
 
 def test_vcf_sample_names_errors(tmp_path):
-    from weightedld_tpu.io.vcf import vcf_sample_names
+    from weightedld.io.vcf import vcf_sample_names
 
     f = tmp_path / "nohdr.vcf"
     f.write_text("##fileformat=VCFv4.1\n")
@@ -290,24 +297,24 @@ def test_vcf_sample_names_errors(tmp_path):
 
 
 def test_site_annotations_alignment_with_site_map():
-    from weightedld_tpu.io.vcf import read_vcf, site_annotations
+    from weightedld.io.vcf import read_vcf, site_annotations
 
-    pos, chroms, ids = site_annotations(T7_PATH)
-    _, sm = read_vcf(T7_PATH)
+    pos, chroms, ids = site_annotations(synthetic_t7_path())
+    _, sm = read_vcf(synthetic_t7_path())
     assert pos.tolist() == sm.tolist()
     assert chroms == ["19"] * 5
-    assert ids[0] == "rs189636588" and ids[-1] == "rs73934846"
+    assert ids == SYN7_IDS
     # Filters keep the annotation set aligned with the filtered readers.
-    pos2, _, ids2 = site_annotations(T7_PATH, chrom="19",
+    pos2, _, ids2 = site_annotations(synthetic_t7_path(), chrom="19",
                                      pos_range=(44890100, 44890180))
     assert pos2.tolist() == [44890114, 44890164, 44890171]
     assert ids2[0] == "rs73934845"
     with pytest.raises(VcfError, match="no variant records"):
-        site_annotations(T7_PATH, chrom="nope")
+        site_annotations(synthetic_t7_path(), chrom="nope")
 
 
 def test_parse_region_open_ends_and_commas():
-    from weightedld_tpu.io.vcf import parse_region
+    from weightedld.io.vcf import parse_region
 
     assert parse_region("chr1:44,890,000-44,890,200") == \
         ("chr1", (44890000, 44890200))
